@@ -1,0 +1,4 @@
+from .ops import ssd, ssd_step
+from .ref import ssd_reference, ssd_step_reference
+
+__all__ = ["ssd", "ssd_step", "ssd_reference", "ssd_step_reference"]
