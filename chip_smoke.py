@@ -8,19 +8,31 @@ Phases (any failure exits non-zero before the last line is printed):
 1. device: the card's name and power limit from nvidia-smi;
 2. kernels: builds every CUDA kernel from ``src/repro_torch/kernels/*/csrc``
    (one nvcc per source, in parallel), holds each against its plain PyTorch
-   version computed in float64 on the card, and times both with CUDA events;
-3. serve: mamba2-1.3b at full width and depth (48 layers, d_model 2048,
+   version computed in float64 on the card (bf16 outputs of flash attention
+   and RG-LRU within one bf16 ulp), and times both with CUDA events
+   (flash attention also against ``scaled_dot_product_attention`` as a
+   yardstick the port never calls);
+3. serve mamba2-1.3b at full width and depth (48 layers, d_model 2048,
    random weights from a seed, fp32 params, bf16 compute) through
    ``ServeEngine(max_batch=4)``: after a cold-start wave, a wave of
    4 x 512-token prompts and a wave of 4 x 256-token prompts, 32 greedy
    tokens each.  The SSD kernel's launch count is set to 0 before each of
    these two waves and must read 48 after it;
-4. reference: the smoke-size model on the card, kernel path against the
-   plain path, prefill and decode logits within fp32 tolerance.
+4. serve recurrentgemma-9b at full width and depth (38 layers: 26 RG-LRU
+   and 12 local-attention layers, d_model 4096, 9.4 B parameters) the same
+   way: after a cold-start wave (4 x 1024, 2 tokens), wave A (4 x 3072-token
+   prompts: longer than the 2048 window, so window masking, tile skipping and
+   the ring write all run) and wave B (4 x 1024), 32 greedy tokens each.
+   Every count is set to 0 before each wave; after it the RG-LRU kernel
+   must read 26, flash attention 12 and SSD 0;
+5. reference: smoke-size models on the card in fp32, kernel path against the
+   plain path: mamba2 (prefill and one decode step) and recurrentgemma with
+   5 layers (two unscanned tail layers; 48- and 80-token prompts against a
+   32-token window in a 64-slot ring; prefill and 8 decode steps).
 
-With ``--profile``, phase 3 also traces one prefill of wave 1's prompts and
-8 decode steps under ``torch.profiler`` and prints where the device time goes
-and the device's idle share (see ``profile_serve``).
+With ``--profile``, phases 3 and 4 also trace one prefill of their first
+measured wave and 8 decode steps under ``torch.profiler`` and print where the
+device time goes and the device's idle share (see ``profile_serve``).
 
 Then one JSON line describing each kernel, the nvidia-smi line again, and as
 the last line ``{"ok": true, "device": {...}}``.
@@ -28,6 +40,7 @@ the last line ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import statistics
@@ -42,6 +55,11 @@ HBM_BYTES_PER_S = 3.35e12            # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {"float32": 67e12,      # CUDA cores, no tensor cores
               "bfloat16": 989e12}    # dense bf16 tensor cores
 TOL = {"float32": 3e-4, "bfloat16": 5e-2}   # tests/test_kernels.py::_tol
+# flash_fwd and rglru_fwd compute in fp32 and round a bf16 output once, so
+# they are held to one bf16 ulp of the float64 result (2^-7 relative) plus
+# fp32 slack, as (atol, rtol).  _tol's 5e-2 exceeds a typical |attention
+# output| at the serving shape and would pass a wrong kernel.
+ROUNDED_TOL = {"float32": (3e-4, 3e-4), "bfloat16": (1e-4, 2 ** -7)}
 KERNEL_CHUNK = 64                    # ssd_fwd.cu's internal chunk length
 
 
@@ -99,6 +117,145 @@ def ssd_bound(B, S, H, P, N, dtype: str, with_s0: bool):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def flash_bound(torch, q, k, mask, dtype: str):
+    """Least time for flash_fwd's work: (ms, "bytes" | "operations").
+
+    Bytes: q, k, v read and the output written in their dtype, segments read
+    (int32, when given).  Operations: for every valid (query, key) pair of
+    these inputs (``mask``: (B, Sq, Sk) bool, counted on the card), the
+    QK^T and PV dot products, 2 D multiply-adds, 4 D operations, per q head;
+    at the peak rate of the input dtype.
+    """
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    elt = q.element_size()
+    nbytes = (2 * B * Sq * Hq * D + 2 * B * Sk * Hkv * D) * elt + 4 * B * (Sq + Sk)
+    pairs = int(mask.sum().item())
+    flops = 4 * D * pairs * Hq
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+RGLRU_OPS_PER_ELEMENT = 20   # two sigmoids, exp, sqrt, clamp and the update
+
+
+def rglru_bound(B, S, W, dtype: str, with_h0: bool):
+    """Least time for rglru_fwd's work: (ms, "bytes" | "operations").
+
+    Bytes: x, r, i read and y written in their dtype, lam read and the final
+    h written in fp32, h0 read (when given) in fp32.  Operations: ~20 fp32
+    operations per element (gates and update) at the CUDA-core fp32 rate
+    (no tensor-core work here, whatever the input dtype).
+    """
+    elt = 2 if dtype == "bfloat16" else 4
+    nbytes = 4 * B * S * W * elt + 4 * W + B * W * 4 * (2 if with_h0 else 1)
+    flops = RGLRU_OPS_PER_ELEMENT * B * S * W
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["float32"]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def close(torch, got, want, atol, rtol):
+    """(ok, max |got - want|): within ``atol + rtol |want|`` and finite."""
+    diff = (got.double() - want).abs()
+    ok = bool((diff <= atol + rtol * want.abs()).all().item())
+    return ok and bool(torch.isfinite(got).all().item()), diff.max().item()
+
+
+def check_flash(torch, case, gen):
+    """Kernel vs plain version on one input set; returns a result dict."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.kernel import flash_cuda
+    from repro_torch.kernels.flash_attention.ops import _flash_chunked
+    (label, B, Sq, Sk, Hq, Hkv, D, dtype, causal, window, cap, q_offset,
+     seg_kind, block) = case
+    tdt = getattr(torch, dtype)
+    dev = "cuda"
+    q, k, v = (torch.randn(shape, device=dev, generator=gen).to(tdt)
+               for shape in ((B, Sq, Hq, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D)))
+    qs = ks = None
+    if seg_kind == "ones":               # the serving path's segments
+        qs = torch.ones((B, Sq), dtype=torch.int32, device=dev)
+        ks = torch.ones((B, Sk), dtype=torch.int32, device=dev)
+    elif seg_kind == "packed":           # two sequences; some rows see no key
+        ks = (torch.arange(Sk, device=dev) >= Sk // 2).int().expand(B, Sk) + 1
+        qs = (torch.arange(Sq, device=dev) + q_offset >= Sk // 2).int().expand(B, Sq) + 1
+        qs = qs.clone()
+        qs[:, :5] = 9
+        ks = ks.contiguous()
+    opts = dict(causal=causal, window=window, softcap=cap, q_segments=qs,
+                kv_segments=ks, q_offset=q_offset)
+    plain = dict(opts, scale=None, block_q=block[0], block_k=block[1])
+
+    out = flash_cuda(q, k, v, **opts)
+    torch.cuda.synchronize()
+    want = _flash_chunked(q.double(), k.double(), v.double(), **plain)
+    tol = ROUNDED_TOL[dtype]
+    ok, err = close(torch, out, want, *tol)
+    typical = want.abs().float().median().item()
+    ms = time_ms(torch, lambda: flash_cuda(q, k, v, **opts))
+    plain_ms = time_ms(torch, lambda: _flash_chunked(q, k, v, **plain), reps=11)
+
+    qp = torch.arange(Sq, device=dev)[:, None] + q_offset
+    kp = torch.arange(Sk, device=dev)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=dev)
+    if causal:
+        mask &= qp >= kp
+    if window is not None:
+        mask &= (qp - kp) < window
+    mask = mask[None].expand(B, Sq, Sk)
+    if qs is not None:
+        mask = mask & (qs[:, :, None] == ks[:, None, :])
+    bound_ms, bound_by = flash_bound(torch, q, k, mask, dtype)
+    library_ms = None
+    if label == "serve wave A":
+        # One PyTorch call for the same function: SDPA with the boolean
+        # causal, window and segment mask (no softcap on this path).
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        attn_mask = mask[:, None]
+        library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=attn_mask, enable_gqa=True), reps=11)
+    res = {"case": label, "shape": [B, Sq, Sk, Hq, Hkv, D], "dtype": dtype,
+           "causal": causal, "window": window, "softcap": cap,
+           "q_offset": q_offset, "segments": seg_kind, "err": err,
+           "median_abs_out": typical, "tol": tol, "ok": ok, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": library_ms}
+    log("flash_fwd check " + json.dumps(res))
+    return res
+
+
+def check_rglru(torch, case, gen):
+    """Kernel vs plain version on one input set; returns a result dict."""
+    from repro_torch.kernels.rglru.kernel import rglru_cuda
+    from repro_torch.kernels.rglru.ops import _rglru_scan
+    label, B, S, W, dtype, with_h0 = case
+    tdt = getattr(torch, dtype)
+    dev = "cuda"
+    x, r, i = (torch.randn(B, S, W, device=dev, generator=gen).to(tdt)
+               for _ in range(3))
+    lam = torch.randn(W, device=dev, generator=gen) * 0.5 + 1.0
+    h0 = torch.randn(B, W, device=dev, generator=gen) * 0.2 if with_h0 else None
+
+    y, h = rglru_cuda(x, r, i, lam, h0)
+    torch.cuda.synchronize()
+    y_ref, h_ref = _rglru_scan(x.double(), r.double(), i.double(), lam.double(),
+                               h0.double() if h0 is not None else None)
+    tol_y, tol_h = ROUNDED_TOL[dtype], ROUNDED_TOL["float32"]   # h is fp32
+    ok_y, err_y = close(torch, y, y_ref, *tol_y)
+    ok_h, err_h = close(torch, h, h_ref, *tol_h)
+    typical = y_ref.abs().float().median().item()
+    ms = time_ms(torch, lambda: rglru_cuda(x, r, i, lam, h0))
+    plain_ms = time_ms(torch, lambda: _rglru_scan(x, r, i, lam, h0), reps=11)
+    bound_ms, bound_by = rglru_bound(B, S, W, dtype, with_h0)
+    res = {"case": label, "shape": [B, S, W], "dtype": dtype, "h0": with_h0,
+           "err_y": err_y, "err_h": err_h, "median_abs_y": typical,
+           "tol_y": tol_y, "tol_h": tol_h, "ok": ok_y and ok_h,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by}
+    log("rglru_fwd check " + json.dumps(res))
+    return res
+
+
 def check_ssd(torch, case, gen):
     """Kernel vs plain version on one input set; returns a result dict."""
     from repro_torch.kernels.ssd.kernel import ssd_cuda
@@ -118,24 +275,26 @@ def check_ssd(torch, case, gen):
     y_ref, sf_ref = _ssd_chunked(
         x.double(), a.double(), Bm.double(), Cm.double(),
         s0.double() if s0 is not None else None, chunk=chunk)
-    tol = TOL[dtype]
-    ok = True
-    errs = {}
-    for name, got, want in (("y", y, y_ref), ("state", sf, sf_ref)):
-        diff = (got.double() - want).abs()
-        errs[name] = diff.max().item()
-        ok &= bool((diff <= tol + tol * want.abs()).all().item())
-        ok &= bool(torch.isfinite(got).all().item())
+    ok_y, err_y = close(torch, y, y_ref, TOL[dtype], TOL[dtype])
+    ok_s, err_s = close(torch, sf, sf_ref, TOL[dtype], TOL[dtype])
     ms = time_ms(torch, lambda: ssd_cuda(x, a, Bm, Cm, s0))
     plain_ms = time_ms(torch, lambda: _ssd_chunked(x, a, Bm, Cm, s0, chunk=chunk),
                        reps=21)
     bound_ms, bound_by = ssd_bound(B, S, H, P, N, dtype, with_s0)
     res = {"case": label, "shape": [B, S, H, P, N], "dtype": dtype,
-           "s0": with_s0, "err_y": errs["y"], "err_state": errs["state"],
-           "tol": tol, "ok": ok, "ms": ms, "plain_ms": plain_ms,
+           "s0": with_s0, "err_y": err_y, "err_state": err_s,
+           "tol": TOL[dtype], "ok": ok_y and ok_s, "ms": ms, "plain_ms": plain_ms,
            "bound_ms": bound_ms, "bound_by": bound_by}
     log("ssd_fwd check " + json.dumps(res))
     return res
+
+
+def wave_inputs(torch, tokens):
+    """The prefill arguments the serving engine passes for a wave."""
+    B, S = tokens.shape
+    return dict(positions=torch.arange(S, dtype=torch.int32, device=tokens.device)
+                .expand(B, S),
+                segments=torch.ones((B, S), dtype=torch.int32, device=tokens.device))
 
 
 def profile_serve(torch, model, tokens, decode_steps: int = 8) -> None:
@@ -144,19 +303,21 @@ def profile_serve(torch, model, tokens, decode_steps: int = 8) -> None:
     Per phase, prints the host-clock window, the device-busy time (the sum of
     the CUDA kernels' durations: one stream, so they do not overlap), the
     device's idle share of the window, and the top kernels by device time.
-    The full per-operator tables go to ``chiprun_out/profile_<phase>.txt``.
+    The full per-operator tables go to
+    ``chiprun_out/profile_<model>_<phase>.txt``.
     """
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     out_dir = Path(__file__).resolve().parent / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    logits, cache, pos = model.prefill(tokens)          # warm the path once
+    kw = wave_inputs(torch, tokens)
+    logits, cache, pos = model.prefill(tokens, **kw)    # warm the path once
     tok = logits[:, -1].argmax(-1)[:, None]
     torch.cuda.synchronize()
 
     def prefill():
-        model.prefill(tokens)
+        model.prefill(tokens, **kw)
 
     def decode():
         step_cache, step_tok = cache, tok
@@ -180,15 +341,137 @@ def profile_serve(torch, model, tokens, decode_steps: int = 8) -> None:
         busy_us = sum(us for _, us in by_kernel.values())
         top = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:8]
         log("profile " + json.dumps({
-            "phase": phase, "batch": tokens.shape[0], "prompt_len": tokens.shape[1],
+            "model": model.cfg.name, "phase": phase, "batch": tokens.shape[0],
+            "prompt_len": tokens.shape[1],
             "decode_steps": decode_steps if phase == "decode" else 0,
             "window_ms": window_us / 1e3, "device_busy_ms": busy_us / 1e3,
             "device_idle_share": 1 - busy_us / window_us,
             "kernel_launches": sum(n for n, _ in by_kernel.values()),
             "top_kernels": [{"name": name[:80], "launches": n, "ms": us / 1e3}
                             for name, (n, us) in top]}))
-        (out_dir / f"profile_{phase}.txt").write_text(prof.key_averages().table(
+        (out_dir / f"profile_{model.cfg.name}_{phase}.txt").write_text(prof.key_averages().table(
             sort_by="self_device_time_total", row_limit=40))
+
+
+def counts():
+    """The three kernels' launch counters."""
+    from repro_torch.kernels.flash_attention.kernel import flash_cuda
+    from repro_torch.kernels.rglru.kernel import rglru_cuda
+    from repro_torch.kernels.ssd.kernel import ssd_cuda
+    return {"ssd_fwd": ssd_cuda, "rglru_fwd": rglru_cuda, "flash_fwd": flash_cuda}
+
+
+def serve_waves(torch, model, cold_len: int, wave_lens, expect: dict, tag: str,
+                prompt_gen):
+    """A cold-start wave, then the measured waves through
+    ``ServeEngine(max_batch=4)``, 32 greedy tokens each.  Every launch count
+    is set to 0 just before each measured wave and must read ``expect``
+    (kernel name -> launches) just after it.  Returns (waves, prompts,
+    total launches by kernel)."""
+    from repro_torch.serve import ServeEngine
+    cfg = model.cfg
+    engine = ServeEngine(model, max_batch=4)
+    # A first wave pays one-time costs (cuBLAS handles and heuristics, the
+    # caching allocator's first blocks); it is timed apart as the cold start.
+    for p in torch.randint(3, cfg.vocab_size, (4, cold_len),
+                           generator=torch.Generator().manual_seed(2)).numpy():
+        engine.submit(p, max_new_tokens=2)
+    engine.run()
+    log(f"{tag} cold-start wave (4 x {cold_len} prompts, 2 tokens): prefill "
+        f"{engine.wave_stats[-1]['prefill_s'] * 1e3:.1f} ms")
+    torch.cuda.reset_peak_memory_stats()
+    waves, wave_prompts = [], []
+    total = {name: 0 for name in expect}
+    for prompt_len in wave_lens:
+        prompts = torch.randint(3, cfg.vocab_size, (4, prompt_len),
+                                generator=prompt_gen).numpy()
+        wave_prompts.append(prompts)
+        ids = [engine.submit(p, max_new_tokens=32) for p in prompts]
+        for fn in counts().values():
+            fn.launches = 0
+        engine.run()
+        got = {name: fn.launches for name, fn in counts().items()}
+        for name, want in expect.items():
+            if got[name] != want:
+                fail(f"{tag} wave of {prompt_len}-token prompts launched {name} "
+                     f"{got[name]} times, expected {want}")
+            total[name] += got[name]
+        for rid in ids:
+            req = engine.result(rid)
+            if not req.done or len(req.output) != 32:
+                fail(f"{tag} request {rid} did not finish: {len(req.output)} tokens")
+        stats = engine.wave_stats[-1]
+        waves.append(dict(stats, launches=got,
+                          decode_tok_per_s=stats["decode_tokens"] / stats["decode_s"]))
+    log(f"serve {tag} " + json.dumps({
+        "waves": [{k: w[k] for k in ("batch", "prompt_len", "launches",
+                                     "decode_steps", "decode_tokens")}
+                  | {"prefill_ms": w["prefill_s"] * 1e3,
+                     "decode_tok_per_s": w["decode_tok_per_s"]} for w in waves],
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}))
+    return wave_prompts, total
+
+
+def full_width_logits(torch, model, prompts, plain: dict, tag: str) -> None:
+    """Prefill and one decode step: finite logits of the right shape; then the
+    kernel path against the plain path (bf16 compute, information only)."""
+    cfg = model.cfg
+    tokens = torch.as_tensor(prompts, device="cuda")
+    kw = wave_inputs(torch, tokens)
+    logits, cache, pos = model.prefill(tokens, **kw)
+    if tuple(logits.shape) != (tokens.shape[0], 1, cfg.padded_vocab):
+        fail(f"{tag} prefill logits have shape {tuple(logits.shape)}")
+    step_logits, _ = model.decode_step(cache, logits[:, -1].argmax(-1)[:, None], pos)
+    for name, t in (("prefill", logits[..., :cfg.vocab_size]),
+                    ("decode", step_logits[..., :cfg.vocab_size])):
+        if not torch.isfinite(t).all():
+            fail(f"{tag} full-width {name} logits are not finite")
+    del cache
+    rt = model.rt
+    model.rt = rt.with_(**plain)
+    plain_logits, _, _ = model.prefill(tokens, **kw)
+    model.rt = rt
+    agree = (plain_logits.argmax(-1) == logits.argmax(-1)).sum().item()
+    log(f"{tag} full-width prefill logits, kernel path vs plain path (bf16 "
+        f"compute, information only): max abs diff "
+        f"{(plain_logits - logits)[..., :cfg.vocab_size].abs().max().item()}, "
+        f"greedy tokens agree {agree}/{tokens.shape[0]}")
+
+
+def smoke_reference(torch, cfg, plain: dict, prompt_lens, steps: int, seed: int,
+                    **rt_kw) -> None:
+    """Smoke-size model in fp32 on the card: kernel path against the plain
+    path, prefill and ``steps`` decode steps, logits within fp32 tolerance."""
+    from repro_torch.models import RuntimeConfig, build_model
+    small = build_model(cfg, RuntimeConfig(compute_dtype=torch.float32, **rt_kw),
+                        device="cuda", seed=seed)
+    tol = TOL["float32"]
+    gen = torch.Generator().manual_seed(seed)
+    base = small.rt
+    for prompt_len in prompt_lens:
+        toks = torch.randint(3, cfg.vocab_size, (2, prompt_len), generator=gen).cuda()
+        runs = []
+        for rt in (base, base.with_(**plain)):
+            small.rt = rt
+            logits, cache, pos = small.prefill(toks, **wave_inputs(torch, toks))
+            out = [logits]
+            tok = logits[:, -1].argmax(-1)[:, None]
+            for i in range(steps):
+                logits, cache = small.decode_step(cache, tok, pos + i)
+                out.append(logits)
+                tok = logits[:, -1].argmax(-1)[:, None]
+            runs.append(out)
+        small.rt = base
+        for i, (g, w) in enumerate(zip(*runs)):
+            diff = (g - w).abs()
+            name = "prefill" if i == 0 else f"decode {i}"
+            if i in (0, 1, steps):
+                log(f"smoke {cfg.name} ({cfg.n_layers} layers) prompt {prompt_len} "
+                    f"{name} logits, kernel vs plain: max abs diff {diff.max().item()}")
+            if not (diff <= tol + tol * w.abs()).all():
+                fail(f"smoke {cfg.name} prompt {prompt_len} {name} logits "
+                     f"disagree beyond {tol}")
+    del small
 
 
 def main() -> None:
@@ -198,15 +481,16 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
     sys.path.insert(0, str(SRC))
+    import dataclasses
+
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.kernels import _build
-    from repro_torch.kernels.ssd.kernel import ssd_cuda
     from repro_torch.models import RuntimeConfig, build_model
-    from repro_torch.serve import ServeEngine
 
     torch.backends.cuda.matmul.allow_tf32 = False     # fp32 stays fp32
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    profiling = "--profile" in sys.argv[1:]
 
     # 1. device --------------------------------------------------------------
     card = card_line()
@@ -224,120 +508,124 @@ def main() -> None:
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    cases = [
+    ssd_cases = [
         # label, B, S, H, P, N, dtype, initial state, chunk
         ("full-width fp32", 2, 1024, 64, 64, 128, "float32", True, 256),
         ("full-width bf16", 2, 1024, 64, 64, 128, "bfloat16", True, 256),
         ("serve wave 1", 4, 512, 64, 64, 128, "bfloat16", False, 256),
         ("serve wave 2", 4, 256, 64, 64, 128, "bfloat16", False, 256),
     ]
-    checks = [check_ssd(torch, case, gen) for case in cases]
-    bad = [c["case"] for c in checks if not c["ok"]]
-    if bad:
-        fail(f"ssd_fwd disagrees with its plain version: {bad}")
+    flash_cases = [
+        # label, B, Sq, Sk, Hq, Hkv, D, dtype, causal, window, softcap,
+        # q_offset, segments, plain (block_q, block_k)
+        ("serve wave A", 4, 3072, 3072, 16, 1, 256, "bfloat16", True, 2048, None,
+         0, "ones", (512, 1024)),
+        ("ragged fp32", 2, 300, 300, 8, 2, 64, "float32", True, 100, None, 0, None,
+         (300, 300)),
+        ("gqa 2, softcap 50", 2, 512, 512, 8, 4, 128, "bfloat16", True, None, 50.0,
+         0, None, (256, 256)),
+        ("non-causal", 2, 256, 256, 4, 4, 64, "float32", False, None, None, 0, None,
+         (128, 128)),
+        ("q_offset, Sq < Sk", 2, 64, 320, 4, 1, 128, "float32", True, 128, None,
+         256, None, (64, 64)),
+        ("masked rows", 2, 256, 256, 8, 1, 64, "bfloat16", True, None, None, 0,
+         "packed", (128, 128)),
+        ("head_dim 256 fp32", 1, 200, 200, 4, 1, 256, "float32", True, 64, None, 0,
+         "packed", (200, 200)),
+    ]
+    rglru_cases = [
+        # label, B, S, W, dtype, initial h
+        ("serve wave A", 4, 3072, 4096, "bfloat16", False),
+        ("fp32 with h0", 2, 1024, 4096, "float32", True),
+        ("ragged S", 3, 1001, 1000, "bfloat16", True),
+    ]
+    checks = {"ssd_fwd": [check_ssd(torch, c, gen) for c in ssd_cases],
+              "flash_fwd": [check_flash(torch, c, gen) for c in flash_cases],
+              "rglru_fwd": [check_rglru(torch, c, gen) for c in rglru_cases]}
+    for name, results in checks.items():
+        bad = [c["case"] for c in results if not c["ok"]]
+        if bad:
+            fail(f"{name} disagrees with its plain version: {bad}")
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # 3. serve mamba2-1.3b at full width and depth ------------------------------
+    prompt_gen = torch.Generator().manual_seed(1)
     cfg = get_config("mamba2-1.3b")
     t0 = time.perf_counter()
     model = build_model(cfg, RuntimeConfig(), device="cuda", seed=0)
     torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in model.parameters())
     log(f"model {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{n_params} params, built in {time.perf_counter() - t0:.1f} s")
-    engine = ServeEngine(model, max_batch=4)
-    # A first wave pays one-time costs (cuBLAS handles and heuristics, the
-    # caching allocator's first blocks); it is timed apart as the cold start.
-    for p in torch.randint(3, cfg.vocab_size, (4, 512),
-                           generator=torch.Generator().manual_seed(2)).numpy():
-        engine.submit(p, max_new_tokens=2)
-    engine.run()
-    log(f"cold-start wave (4 x 512 prompts, 2 tokens): prefill "
-        f"{engine.wave_stats[-1]['prefill_s'] * 1e3:.1f} ms")
-    prompt_gen = torch.Generator().manual_seed(1)
-    torch.cuda.reset_peak_memory_stats()
-    launches = 0
-    waves = []
-    wave_prompts = []
-    for prompt_len in (512, 256):
-        prompts = torch.randint(3, cfg.vocab_size, (4, prompt_len),
-                                generator=prompt_gen).numpy()
-        wave_prompts.append(prompts)
-        ids = [engine.submit(p, max_new_tokens=32) for p in prompts]
-        ssd_cuda.launches = 0
-        engine.run()
-        wave_launches = ssd_cuda.launches
-        if wave_launches != cfg.n_layers:
-            fail(f"wave of {prompt_len}-token prompts launched ssd_fwd "
-                 f"{wave_launches} times, expected {cfg.n_layers}")
-        launches += wave_launches
-        for rid in ids:
-            req = engine.result(rid)
-            if not req.done or len(req.output) != 32:
-                fail(f"request {rid} did not finish: {len(req.output)} tokens")
-        stats = engine.wave_stats[-1]
-        waves.append(dict(stats, ssd_launches=wave_launches,
-                          decode_tok_per_s=stats["decode_tokens"] / stats["decode_s"]))
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    log("serve " + json.dumps({
-        "waves": [{k: w[k] for k in ("batch", "prompt_len", "ssd_launches",
-                                     "decode_steps", "decode_tokens")}
-                  | {"prefill_ms": w["prefill_s"] * 1e3,
-                     "decode_tok_per_s": w["decode_tok_per_s"]} for w in waves],
-        "peak_mem_gib": peak_gib}))
+        f"{sum(p.numel() for p in model.parameters())} params, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    prompts, launches = serve_waves(
+        torch, model, 512, (512, 256),
+        {"ssd_fwd": cfg.n_layers, "rglru_fwd": 0, "flash_fwd": 0}, "mamba2", prompt_gen)
+    if profiling:
+        profile_serve(torch, model, torch.as_tensor(prompts[0], device="cuda"))
+    full_width_logits(torch, model, prompts[-1], {"ssd_impl": "chunked"}, "mamba2")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    if "--profile" in sys.argv[1:]:
-        profile_serve(torch, model, torch.as_tensor(wave_prompts[0], device="cuda"))
-    tokens = torch.as_tensor(prompts, device="cuda")
-    logits, cache, pos = model.prefill(tokens)
-    if tuple(logits.shape) != (4, 1, cfg.padded_vocab):
-        fail(f"prefill logits have shape {tuple(logits.shape)}")
-    step_logits, _ = model.decode_step(cache, logits[:, -1].argmax(-1)[:, None], pos)
-    for name, t in (("prefill", logits[..., :cfg.vocab_size]),
-                    ("decode", step_logits[..., :cfg.vocab_size])):
-        if not torch.isfinite(t).all():
-            fail(f"full-width {name} logits are not finite")
-    model.rt = model.rt.with_(ssd_impl="chunked")
-    plain_logits, _, _ = model.prefill(tokens)
-    model.rt = model.rt.with_(ssd_impl="auto")
-    agree = (plain_logits.argmax(-1) == logits.argmax(-1)).sum().item()
-    log(f"full-width prefill logits, kernel path vs plain path (bf16 compute, "
-        f"information only): max abs diff "
-        f"{(plain_logits - logits)[..., :cfg.vocab_size].abs().max().item()}, "
-        f"greedy tokens agree {agree}/4")
-    del model, engine, cache, logits, plain_logits
+    # 4. serve recurrentgemma-9b at full width and depth ------------------------
+    cfg = get_config("recurrentgemma-9b")
+    kinds = [cfg.pattern[i % len(cfg.pattern)] for i in range(cfg.n_layers)]
+    n_rec, n_local = kinds.count("rec"), kinds.count("local")
+    t0 = time.perf_counter()
+    model = build_model(cfg, RuntimeConfig(max_cache_len=3072 + 32), device="cuda",
+                        seed=0)
+    torch.cuda.synchronize()
+    log(f"model {cfg.name}: {cfg.n_layers} layers ({n_rec} rec, {n_local} local), "
+        f"d_model {cfg.d_model}, {sum(p.numel() for p in model.parameters())} "
+        f"params, built in {time.perf_counter() - t0:.1f} s")
+    prompts, rg_launches = serve_waves(
+        torch, model, 1024, (3072, 1024),
+        {"ssd_fwd": 0, "rglru_fwd": n_rec, "flash_fwd": n_local}, "recurrentgemma",
+        prompt_gen)
+    for name, n in rg_launches.items():
+        launches[name] += n
+    if profiling:
+        profile_serve(torch, model, torch.as_tensor(prompts[0], device="cuda"))
+    full_width_logits(torch, model, prompts[0],
+                      {"attn_impl": "chunked", "rglru_impl": "scan"}, "recurrentgemma")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # 4. reference: smoke-size model, kernel path vs plain path in fp32 ---------
-    small = build_model(get_smoke_config("mamba2-1.3b"),
-                        RuntimeConfig(compute_dtype=torch.float32),
-                        device="cuda", seed=3)
-    toks = torch.randint(3, 512, (2, 48), generator=prompt_gen).to("cuda")
-    got, got_cache, pos = small.prefill(toks)
-    nxt = got[:, -1].argmax(-1)[:, None]
-    got_step, _ = small.decode_step(got_cache, nxt, pos)
-    small.rt = small.rt.with_(ssd_impl="chunked")
-    want, want_cache, _ = small.prefill(toks)
-    want_step, _ = small.decode_step(want_cache, nxt, pos)
-    tol = TOL["float32"]
-    for name, g, w in (("prefill", got, want), ("decode", got_step, want_step)):
-        diff = (g - w).abs()
-        log(f"smoke model {name} logits, kernel vs plain: max abs diff "
-            f"{diff.max().item()}")
-        if not (diff <= tol + tol * w.abs()).all():
-            fail(f"smoke model {name} logits disagree beyond {tol}")
+    # 5. reference: smoke-size models, kernel path vs plain path in fp32 ---------
+    smoke_reference(torch, get_smoke_config("mamba2-1.3b"), {"ssd_impl": "chunked"},
+                    (48,), 1, seed=3)
+    rg_small = dataclasses.replace(get_smoke_config("recurrentgemma-9b"), n_layers=5)
+    smoke_reference(torch, rg_small, {"attn_impl": "chunked", "rglru_impl": "scan"},
+                    (48, 80), 8, seed=4, max_cache_len=64)
 
-    main_path = checks[2]      # serve wave 1: the main path's largest call
-    log(json.dumps({"kernels": [{
-        "name": "ssd_fwd", "route": "cuda",
-        "source": "src/repro_torch/kernels/ssd/csrc/ssd_fwd.cu",
-        "replaces": "src/repro/kernels/ssd/kernel.py:91",
-        "launches": launches,
-        "max_abs_err": max(max(c["err_y"], c["err_state"]) for c in checks),
-        "ms": main_path["ms"], "plain_ms": main_path["plain_ms"],
-        "bound_ms": main_path["bound_ms"], "bound_by": main_path["bound_by"],
-        "library_ms": None,
-        "shape": main_path["shape"], "dtype": main_path["dtype"],
-        "checks": {c["case"]: c["ok"] for c in checks},
-    }]}))
+    # The main path's largest call of each kernel.
+    main_case = {"ssd_fwd": "serve wave 1", "flash_fwd": "serve wave A",
+                 "rglru_fwd": "serve wave A"}
+    meta = {
+        "ssd_fwd": ("src/repro_torch/kernels/ssd/csrc/ssd_fwd.cu",
+                    "src/repro/kernels/ssd/kernel.py:91"),
+        "flash_fwd": ("src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu",
+                      "src/repro/kernels/flash_attention/kernel.py:117"),
+        "rglru_fwd": ("src/repro_torch/kernels/rglru/csrc/rglru_fwd.cu",
+                      "src/repro/kernels/rglru/kernel.py:75"),
+    }
+    entries = []
+    for name, results in checks.items():
+        main_path = next(c for c in results if c["case"] == main_case[name])
+        errs = [max(v for k, v in c.items() if k.startswith("err")) for c in results]
+        entries.append({
+            "name": name, "route": "cuda", "source": meta[name][0],
+            "replaces": meta[name][1], "launches": launches[name],
+            "max_abs_err": max(errs),
+            "ms": main_path["ms"], "plain_ms": main_path["plain_ms"],
+            "bound_ms": main_path["bound_ms"], "bound_by": main_path["bound_by"],
+            "library_ms": main_path.get("library_ms"),
+            "shape": main_path["shape"], "dtype": main_path["dtype"],
+            "checks": {c["case"]: c["ok"] for c in results},
+        })
+    log(json.dumps({"kernels": entries}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -26,6 +26,8 @@ BUILD_DIR = _PKG.parents[2] / "build" / "torch_ext"
 
 SOURCES: Dict[str, Path] = {
     "ssd_fwd": _PKG / "ssd" / "csrc" / "ssd_fwd.cu",
+    "flash_fwd": _PKG / "flash_attention" / "csrc" / "flash_fwd.cu",
+    "rglru_fwd": _PKG / "rglru" / "csrc" / "rglru_fwd.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,0 +1,118 @@
+"""Public attention op with implementation dispatch (cuda / chunked / ref).
+
+``impl="auto"`` launches the Hopper kernel for CUDA tensors and runs the
+kernel's plain version, :func:`_flash_chunked`, for CPU tensors.  Nothing
+falls back: a CUDA tensor under ``"cuda"`` or ``"auto"`` launches the kernel
+or raises.  ``"ref"`` is :func:`attention_reference`, which materialises the
+scores.  The kernel's launch count is ``kernel.flash_cuda.launches``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .ref import NEG_INF, attention_reference
+
+__all__ = ["flash_attention"]
+
+
+def flash_attention(
+    q: torch.Tensor,              # (B, Sq, Hq, D)
+    k: torch.Tensor,              # (B, Sk, Hkv, D)
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+    q_segments: Optional[torch.Tensor] = None,
+    kv_segments: Optional[torch.Tensor] = None,
+    q_offset: int = 0,
+    scale: Optional[float] = None,
+    impl: str = "auto",
+    block_q: int = 128,
+    block_k: int = 128,
+) -> torch.Tensor:
+    common = dict(causal=causal, window=window, softcap=softcap,
+                  q_segments=q_segments, kv_segments=kv_segments,
+                  q_offset=q_offset, scale=scale)
+    if impl == "auto":
+        impl = "cuda" if q.is_cuda else "chunked"
+    if impl == "ref":
+        return attention_reference(q, k, v, **common)
+    if impl not in ("cuda", "chunked"):
+        raise ValueError(f"unknown impl {impl!r}")
+    Sq, Sk = q.shape[1], k.shape[1]
+    bq, bk = min(block_q, Sq), min(block_k, Sk)
+    assert Sq % bq == 0 and Sk % bk == 0, (Sq, bq, Sk, bk)
+    if impl == "cuda":
+        from .kernel import flash_cuda        # builds the kernel on first use
+        return flash_cuda(q, k, v, **common)
+    return _flash_chunked(q, k, v, block_q=bq, block_k=bk, **common)
+
+
+def _flash_chunked(
+    q, k, v, *, causal, window, softcap, q_segments, kv_segments, q_offset,
+    scale, block_q, block_k,
+):
+    """Chunked online-softmax attention in plain torch: port of
+    ``repro.kernels.flash_attention.ops._flash_xla`` and the plain version of
+    the CUDA kernel.  A loop over q blocks and, inside, over kv blocks; the
+    transient scores are (B, Hq, bq, bk), never (Sq, Sk).  Computes in fp32,
+    or fp64 when q is fp64."""
+    B, Sq, Hq, D = q.shape
+    _, Sk, Hkv, _ = k.shape
+    group = Hq // Hkv
+    if scale is None:
+        scale = 1.0 / (D ** 0.5)
+    bq, bk = min(block_q, Sq), min(block_k, Sk)
+    assert Sq % bq == 0 and Sk % bk == 0
+    n_q, n_k = Sq // bq, Sk // bk
+    use_segments = q_segments is not None
+
+    if n_q == 1 and n_k == 1:
+        return attention_reference(
+            q, k, v, causal=causal, window=window, softcap=softcap,
+            q_segments=q_segments if use_segments else None,
+            kv_segments=kv_segments if use_segments else None,
+            q_offset=q_offset, scale=scale)
+
+    cdt = torch.promote_types(q.dtype, torch.float32)
+    kf, vf = k.to(cdt), v.to(cdt)
+    outs = []
+    for qi in range(n_q):
+        qf = q[:, qi * bq:(qi + 1) * bq].to(cdt) * scale   # (B, bq, Hq, D)
+        q_pos = q_offset + qi * bq + torch.arange(bq, device=q.device)
+        m = torch.full((B, Hq, bq), NEG_INF, dtype=cdt, device=q.device)
+        l = torch.zeros((B, Hq, bq), dtype=cdt, device=q.device)
+        acc = torch.zeros((B, Hq, bq, D), dtype=cdt, device=q.device)
+        for ki in range(n_k):
+            ks = slice(ki * bk, (ki + 1) * bk)
+            k_rep = kf[:, ks].repeat_interleave(group, dim=2)   # (B, bk, Hq, D)
+            v_rep = vf[:, ks].repeat_interleave(group, dim=2)
+            s = torch.einsum("bqhd,bkhd->bhqk", qf, k_rep)
+            if softcap is not None:
+                s = softcap * torch.tanh(s / softcap)
+            k_pos = ki * bk + torch.arange(bk, device=q.device)
+            mask = torch.ones((bq, bk), dtype=torch.bool, device=q.device)
+            if causal:
+                mask &= q_pos[:, None] >= k_pos[None, :]
+            if window is not None:
+                mask &= (q_pos[:, None] - k_pos[None, :]) < window
+            mask = mask[None, None]
+            if use_segments:
+                mask = mask & (q_segments[:, None, qi * bq:(qi + 1) * bq, None]
+                               == kv_segments[:, None, None, ks])
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            m_safe = torch.where(m_new <= NEG_INF * 0.5, 0.0, m_new)
+            p = torch.where(mask, torch.exp(s - m_safe[..., None]), 0.0)
+            alpha = torch.where(m <= NEG_INF * 0.5, 0.0, torch.exp(m - m_safe))
+            l = alpha * l + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhqk,bkhd->bhqd", p, v_rep)
+            m = m_new
+        l_safe = torch.where(l == 0.0, 1.0, l)
+        outs.append((acc / l_safe[..., None]).transpose(1, 2).to(q.dtype))
+    return torch.cat(outs, dim=1)

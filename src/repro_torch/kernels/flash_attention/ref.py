@@ -1,0 +1,65 @@
+"""Plain-torch oracle for flash attention (naive, materialises the scores),
+as ``repro.kernels.flash_attention.ref``.
+
+fp32 softmax (fp64 when q is fp64), GQA, causal / sliding-window / softcap /
+segment (packed-sequence) masking.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+__all__ = ["attention_reference"]
+
+NEG_INF = -1e30
+
+
+def attention_reference(
+    q: torch.Tensor,              # (B, Sq, Hq, D)
+    k: torch.Tensor,              # (B, Sk, Hkv, D)
+    v: torch.Tensor,              # (B, Sk, Hkv, D)
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+    q_segments: Optional[torch.Tensor] = None,   # (B, Sq) int32
+    kv_segments: Optional[torch.Tensor] = None,  # (B, Sk) int32
+    q_offset: int = 0,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    B, Sq, Hq, D = q.shape
+    _, Sk, Hkv, _ = k.shape
+    assert Hq % Hkv == 0, (Hq, Hkv)
+    group = Hq // Hkv
+    if scale is None:
+        scale = 1.0 / (D ** 0.5)
+    cdt = torch.promote_types(q.dtype, torch.float32)
+
+    # GQA: expand kv heads to q heads (q head h reads kv head h // group).
+    k = k.repeat_interleave(group, dim=2)
+    v = v.repeat_interleave(group, dim=2)
+
+    qf = q.to(cdt) * scale
+    scores = torch.einsum("bqhd,bkhd->bhqk", qf, k.to(cdt))
+    if softcap is not None:
+        scores = softcap * torch.tanh(scores / softcap)
+
+    q_pos = torch.arange(Sq, device=q.device) + q_offset     # absolute positions
+    k_pos = torch.arange(Sk, device=q.device)
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= q_pos[:, None] >= k_pos[None, :]
+    if window is not None:
+        mask &= (q_pos[:, None] - k_pos[None, :]) < window
+    mask4 = mask[None, None]
+    if q_segments is not None and kv_segments is not None:
+        mask4 = mask4 & (q_segments[:, None, :, None] == kv_segments[:, None, None, :])
+
+    scores = torch.where(mask4, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    # Fully-masked rows (can happen with segments) -> zero output.
+    probs = torch.where(mask4.any(dim=-1, keepdim=True), probs, 0.0)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, v.to(cdt))
+    return out.to(q.dtype)

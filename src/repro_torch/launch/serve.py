@@ -1,11 +1,16 @@
 """Batched serving driver: build a model, prefill a batch of prompts, decode.
 
 Port of ``repro.launch.serve``.  Runs on the CUDA card unless ``--device cpu``
-is given; prefill's SSD scan then launches the hand-written Hopper kernel.
+is given; prefill's SSD and RG-LRU scans and local attention then launch the
+hand-written Hopper kernels.  The KV cache holds ``prompt_len + gen``
+positions (a window-sized ring for local attention), as the reference sets
+``max_cache_len``.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \
         --smoke --batch 4 --prompt-len 32 --gen 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b \
+        --smoke --device cpu
 """
 
 from __future__ import annotations
@@ -40,7 +45,8 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    rt = RuntimeConfig(compute_dtype=_DTYPES[args.dtype])
+    rt = RuntimeConfig(compute_dtype=_DTYPES[args.dtype],
+                       max_cache_len=args.prompt_len + args.gen)
     model = build_model(cfg, rt, device=args.device, seed=0)
     device = model.device
 

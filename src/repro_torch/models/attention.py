@@ -1,0 +1,154 @@
+"""GQA attention module: prefill via the flash kernel, decode via a
+single-token cache read.
+
+Port of ``repro.models.attention`` for self-attention: QKV bias, RoPE,
+sliding windows, logit softcap, MQA..MHA and packed segments.
+Cross-attention (``kv_x``, ``cross_kv``) is ported with the
+encoder-decoder slice (ROADMAP Queue 1).
+
+The module's parameters are an ``nn.ModuleDict`` of ``{"w", "b"?}``
+``nn.ParameterDict``s under the reference's names (``wq``, ``wk``, ``wv``,
+``wo``).  ``attn_decode`` writes the new token's K/V into the cache tensors
+in place (the reference returns updated copies); the cache dict it returns
+holds the same tensors.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from ..configs.base import ModelConfig
+from ..kernels.flash_attention import flash_attention
+from .common import (Initializer, RuntimeConfig, apply_rope, dense_apply,
+                     dense_init)
+
+__all__ = ["attn_init", "attn_apply", "attn_decode", "init_kv_cache"]
+
+NEG_INF = -1e30
+
+
+def attn_init(ini: Initializer, cfg: ModelConfig, dtype) -> nn.ModuleDict:
+    D = cfg.d_model
+    Hq, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return nn.ModuleDict({
+        "wq": dense_init(ini, D, Hq * dh, dtype, bias=cfg.qkv_bias),
+        "wk": dense_init(ini, D, Hkv * dh, dtype, bias=cfg.qkv_bias),
+        "wv": dense_init(ini, D, Hkv * dh, dtype, bias=cfg.qkv_bias),
+        "wo": dense_init(ini, Hq * dh, D, dtype, bias=False),
+    })
+
+
+def _project(p, x: torch.Tensor, n_heads: int, dh: int) -> torch.Tensor:
+    B, S, _ = x.shape
+    return dense_apply(p, x).reshape(B, S, n_heads, dh)
+
+
+def attn_apply(
+    params,
+    x: torch.Tensor,                     # (B, S, D)
+    cfg: ModelConfig,
+    rt: RuntimeConfig,
+    *,
+    positions: Optional[torch.Tensor] = None,
+    causal: bool = True,
+    window: Optional[int] = None,
+    segments: Optional[torch.Tensor] = None,
+    use_rope: bool = True,
+    return_kv: bool = False,
+):
+    """Full-sequence self-attention (training / prefill)."""
+    B, S, _ = x.shape
+    Hq, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = _project(params["wq"], x, Hq, dh)
+    k = _project(params["wk"], x, Hkv, dh)
+    v = _project(params["wv"], x, Hkv, dh)
+    if use_rope:
+        if positions is None:
+            positions = torch.arange(S, device=x.device)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    out = flash_attention(
+        q, k, v, causal=causal, window=window, softcap=cfg.attn_softcap,
+        q_segments=segments, kv_segments=segments, impl=rt.attn_impl,
+        block_q=rt.attn_block_q, block_k=rt.attn_block_k)
+    y = out.reshape(B, S, Hq * dh) @ params["wo"]["w"].to(x.dtype)
+    if return_kv:
+        return y, (k, v)
+    return y
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                  device: torch.device) -> Dict[str, torch.Tensor]:
+    Hkv, dh = cfg.n_kv_heads, cfg.head_dim
+    return {
+        "k": torch.zeros((batch, max_len, Hkv, dh), dtype=dtype, device=device),
+        "v": torch.zeros((batch, max_len, Hkv, dh), dtype=dtype, device=device),
+    }
+
+
+def attn_decode(
+    params,
+    x_t: torch.Tensor,                   # (B, 1, D)
+    cache: Dict[str, torch.Tensor],      # k/v: (B, S_max, Hkv, dh)
+    pos: int,                            # current absolute position
+    cfg: ModelConfig,
+    rt: RuntimeConfig,
+    *,
+    window: Optional[int] = None,
+    context_start: Optional[torch.Tensor] = None,   # (B,) first valid slot
+):
+    """One-token decode.  Returns (y: (B, 1, D), cache).
+
+    Writes k/v at slot ``pos`` (or ``pos % L`` when the cache is a
+    window-sized ring buffer) then attends over the valid entries.  ``pos``
+    is always the *absolute* position (RoPE uses it).
+    """
+    B = x_t.shape[0]
+    Hq, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    group = Hq // Hkv
+    pos = int(pos)
+    q = _project(params["wq"], x_t, Hq, dh)             # (B, 1, Hq, dh)
+    k_t = _project(params["wk"], x_t, Hkv, dh)
+    v_t = _project(params["wv"], x_t, Hkv, dh)
+    pos_arr = torch.full((B, 1), pos, dtype=torch.int32, device=x_t.device)
+    q = apply_rope(q, pos_arr, cfg.rope_theta)
+    k_t = apply_rope(k_t, pos_arr, cfg.rope_theta)
+    L = cache["k"].shape[1]
+    ring = window is not None
+    slot = (pos % L) if ring else pos
+    cache["k"][:, slot] = k_t[:, 0].to(cache["k"].dtype)
+    cache["v"][:, slot] = v_t[:, 0].to(cache["v"].dtype)
+    k, v = cache["k"], cache["v"]
+    slots = torch.arange(L, device=x_t.device)
+    if ring:
+        # absolute position stored in slot s: pos - ((pos - s) mod L)
+        abs_pos = pos - torch.remainder(pos - slots, L)
+        valid = (abs_pos >= 0) & (pos - abs_pos < window)
+    else:
+        abs_pos = slots
+        valid = slots <= pos
+    valid = valid[None, :].expand(B, L)
+    if context_start is not None:
+        valid = valid & (abs_pos[None, :] >= context_start[:, None])
+
+    qf = q.float() * (dh ** -0.5)
+    s = _decode_scores(qf, k.float(), B, group, Hkv, dh)   # (B, Hkv, group, L)
+    if cfg.attn_softcap is not None:
+        s = cfg.attn_softcap * torch.tanh(s / cfg.attn_softcap)
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bngk,bknd->bngd", p, v.float())
+    # (B, Hkv, group, dh) is already q-head order (h = n * group + g).
+    out = out.reshape(B, 1, Hq * dh).to(x_t.dtype)
+    y = out @ params["wo"]["w"].to(x_t.dtype)
+    return y, cache
+
+
+def _decode_scores(qf, kf, B, group, Hkv, dh):
+    # qf: (B, 1, Hq, dh) with Hq = group * Hkv (head-major grouping:
+    # q head h attends kv head h // group).
+    q5 = qf.reshape(B, Hkv, group, dh)                  # squeeze S=1
+    return torch.einsum("bngd,bknd->bngk", q5, kf)

@@ -1,6 +1,6 @@
 """Shared model building blocks: runtime knobs, init helpers, norms.
 
-Port of ``repro.models.common`` for the serving slice.  Parameters are
+Port of ``repro.models.common`` for the serving slices.  Parameters are
 ``nn.Parameter``s held in ``nn.ParameterDict``s with the JAX package's key
 names and ``(d_in, d_out)`` orientation; the apply functions are plain
 functions on tensors, as in the reference.
@@ -13,10 +13,12 @@ from dataclasses import dataclass
 from typing import Optional, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 __all__ = ["RuntimeConfig", "Initializer", "resolve_device", "rmsnorm",
-           "layernorm", "norm_init", "norm_apply", "softcap"]
+           "layernorm", "norm_init", "norm_apply", "dense_init", "dense_apply",
+           "mlp_init", "mlp_apply", "apply_rope", "softcap"]
 
 
 @dataclass(frozen=True)
@@ -25,7 +27,12 @@ class RuntimeConfig:
 
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.bfloat16
+    attn_impl: str = "auto"              # auto | cuda | chunked | ref
     ssd_impl: str = "auto"               # auto | cuda | chunked | ref
+    rglru_impl: str = "auto"             # auto | cuda | scan | ref
+    attn_block_q: int = 512
+    attn_block_k: int = 1024
+    max_cache_len: int = 0               # serve: KV cache allocation length
 
     def with_(self, **kw) -> "RuntimeConfig":
         return dataclasses.replace(self, **kw)
@@ -97,3 +104,65 @@ def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
     if cap is None:
         return x
     return cap * torch.tanh(x / cap)
+
+
+# ---------------------------------------------------------------------------
+# Dense / MLP
+# ---------------------------------------------------------------------------
+
+
+def dense_init(ini: Initializer, d_in: int, d_out: int, dtype,
+               bias: bool = False) -> nn.ParameterDict:
+    p = nn.ParameterDict({"w": ini.normal((d_in, d_out), d_in ** -0.5, dtype)})
+    if bias:
+        p["b"] = ini.zeros((d_out,), dtype)
+    return p
+
+
+def dense_apply(p, x: torch.Tensor) -> torch.Tensor:
+    y = x @ p["w"].to(x.dtype)
+    if "b" in p:
+        y = y + p["b"].to(x.dtype)
+    return y
+
+
+def mlp_init(ini: Initializer, d: int, f: int, dtype) -> nn.ParameterDict:
+    return nn.ParameterDict({
+        "wi": ini.normal((d, f), d ** -0.5, dtype),
+        "wg": ini.normal((d, f), d ** -0.5, dtype),
+        "wo": ini.normal((f, d), f ** -0.5, dtype),
+    })
+
+
+def mlp_apply(p, x: torch.Tensor, act: str) -> torch.Tensor:
+    """Gated MLP: SwiGLU (silu) or GeGLU (gelu, tanh form as ``jax.nn.gelu``)."""
+    h = x @ p["wi"].to(x.dtype)
+    g = x @ p["wg"].to(x.dtype)
+    g = F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")
+    return (h * g) @ p["wo"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def _rope_angles(positions: torch.Tensor, dim: int, theta: float):
+    freq = theta ** (-torch.arange(0, dim, 2, dtype=torch.float32,
+                                   device=positions.device) / dim)
+    ang = positions.to(torch.float32)[..., None] * freq       # (..., dim/2)
+    return torch.sin(ang), torch.cos(ang)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """x: (B, S, H, D); positions: (B, S) or (S,).  Half-split, in fp32."""
+    D = x.shape[-1]
+    sin, cos = _rope_angles(positions, D, theta)      # (B, S, D/2)
+    if sin.dim() == 2:                                 # (S, D/2) -> batch dim
+        sin, cos = sin[None], cos[None]
+    sin = sin[:, :, None, :]
+    cos = cos[:, :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    y = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return y.to(x.dtype)

@@ -1,36 +1,71 @@
-"""Decoder-only LM, ported for the ``("ssm",)`` pattern (mamba2).
+"""Decoder-only LM, ported for the stateful patterns: ``("ssm",)`` (mamba2)
+and ``("rec", "rec", "local")`` (recurrentgemma).
 
 Port of ``repro.models.decoder.DecoderLM``.  The reference stacks each
 superblock's params on a leading repeat dim and scans over it
-(``_scan_or_unroll``); here each layer is one entry of an ``nn.ModuleList``
-and the scan is a Python loop over it.  Block kinds that are not ported yet
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+(``_scan_or_unroll``), with the ``n_layers % len(pattern)`` remainder layers
+in an unscanned ``tail``; here every layer, tail included, is one entry of an
+``nn.ModuleList`` (layer ``l`` has kind ``pattern[l % len(pattern)]``) and
+the scan is a Python loop over it.  Block kinds, options and families that
+are not ported yet raise ``NotImplementedError`` naming the ROADMAP item that
+ports them.
 
 The serving methods keep the reference's signatures minus ``params`` (the
-module holds them).  The decode cache is a list with one ``{"ssd", "conv"}``
-dict per layer.
+module holds them).  The decode cache is a list with one dict per layer:
+``{"ssd", "conv"}`` for ``ssm``, ``{"h", "conv"}`` for ``rec`` and
+``{"k", "v"}`` for ``local`` (a ring buffer of the window, rounded up to
+128, or of ``RuntimeConfig.max_cache_len`` when that is shorter).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Union
+from typing import Dict, List, Optional, Union
 
 import torch
 from torch import nn
 
 from ..configs.base import ModelConfig
-from .common import (Initializer, RuntimeConfig, norm_apply, norm_init,
-                     resolve_device, softcap)
+from .attention import attn_apply, attn_decode, attn_init, init_kv_cache
+from .common import (Initializer, RuntimeConfig, mlp_apply, mlp_init,
+                     norm_apply, norm_init, resolve_device, softcap)
+from .recurrent_block import init_rec_cache, rec_apply, rec_decode, rec_init
 from .ssm_block import init_ssm_cache, ssm_apply, ssm_decode, ssm_init
 
 __all__ = ["DecoderLM"]
 
+_PORTED = ("ssm", "rec", "local")
 _NOT_PORTED = {
-    "attn": "ROADMAP Queue 1 item 3 (attention slice)",
-    "local": "ROADMAP Queue 1 item 3 (attention slice)",
-    "global": "ROADMAP Queue 1 item 3 (attention slice)",
-    "rec": "ROADMAP Queue 1 item 4 (recurrent slice)",
+    "attn": "ROADMAP Queue 1 item 3 (attention slice: padded waves)",
+    "global": "ROADMAP Queue 1 item 3 (attention slice: padded waves)",
 }
+
+
+def _block_window(kind: str, cfg: ModelConfig) -> Optional[int]:
+    if kind == "local":
+        return cfg.local_window
+    if kind in ("attn", "global"):
+        return cfg.sliding_window     # mixtral SWA; None for full attention
+    return None
+
+
+def _cache_round(n: int, m: int = 128) -> int:
+    return ((n + m - 1) // m) * m
+
+
+def _write_ring(cache: Dict[str, torch.Tensor], k: torch.Tensor,
+                v: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Write prompt K/V into the (possibly window-sized ring) cache."""
+    L = cache["k"].shape[1]
+    S = k.shape[1]
+    if S >= L:
+        # keep the last L positions; ring phase = S % L so that absolute
+        # position p lands at slot p % L.
+        shift = S % L
+        return {"k": torch.roll(k[:, S - L:], shift, dims=1).to(cache["k"].dtype),
+                "v": torch.roll(v[:, S - L:], shift, dims=1).to(cache["v"].dtype)}
+    cache["k"][:, :S] = k.to(cache["k"].dtype)
+    cache["v"][:, :S] = v.to(cache["v"].dtype)
+    return cache
 
 
 class DecoderLM(nn.Module):
@@ -39,31 +74,48 @@ class DecoderLM(nn.Module):
     def __init__(self, cfg: ModelConfig, rt: RuntimeConfig = RuntimeConfig(),
                  *, device: Union[str, torch.device] = "cuda", seed: int = 0):
         super().__init__()
-        for kind in cfg.pattern:
-            if kind != "ssm":
-                raise NotImplementedError(
-                    f"block kind {kind!r} is not ported yet: "
-                    f"{_NOT_PORTED.get(kind, 'ROADMAP Queue 1')}")
         if cfg.n_experts:
             raise NotImplementedError(
                 "MoE is not ported yet: ROADMAP Queue 1 item 5")
+        for kind in cfg.pattern:
+            if kind not in _PORTED:
+                raise NotImplementedError(
+                    f"block kind {kind!r} is not ported yet: "
+                    f"{_NOT_PORTED.get(kind, 'ROADMAP Queue 1')}")
+        if cfg.post_norms:
+            raise NotImplementedError(
+                "post-sublayer norms are not ported yet: ROADMAP Queue 1 "
+                "item 3 (attention slice)")
         if cfg.frontend:
             raise NotImplementedError(
                 "frontend embeddings are not ported yet: ROADMAP Queue 1 item 6")
         self.cfg, self.rt = cfg, rt
         self.pattern = cfg.pattern
+        self.kinds = [cfg.pattern[l % len(cfg.pattern)] for l in range(cfg.n_layers)]
         self.device = resolve_device(device)
         ini = Initializer(seed, self.device)
         dtype = rt.param_dtype
         self.embed = ini.normal((cfg.padded_vocab, cfg.d_model), 1.0, dtype)
         self.final_norm = norm_init(ini, cfg.d_model, cfg.norm, dtype)
-        self.blocks = nn.ModuleList(
-            nn.ModuleDict({"norm1": norm_init(ini, cfg.d_model, cfg.norm, dtype),
-                           "ssm": ssm_init(ini, cfg, dtype)})
-            for _ in range(cfg.n_layers))
+        self.blocks = nn.ModuleList(self._init_block(ini, kind) for kind in self.kinds)
         if not cfg.tie_embeddings:
             self.lm_head = ini.normal((cfg.d_model, cfg.padded_vocab),
                                       cfg.d_model ** -0.5, dtype)
+
+    def _init_block(self, ini: Initializer, kind: str) -> nn.ModuleDict:
+        cfg, dtype = self.cfg, self.rt.param_dtype
+        D = cfg.d_model
+        p = nn.ModuleDict({"norm1": norm_init(ini, D, cfg.norm, dtype)})
+        if kind == "ssm":
+            p["ssm"] = ssm_init(ini, cfg, dtype)
+            return p
+        if kind == "rec":
+            p["rec"] = rec_init(ini, cfg, dtype)
+        else:
+            p["attn"] = attn_init(ini, cfg, dtype)
+        p["norm2"] = norm_init(ini, D, cfg.norm, dtype)
+        p["mlp"] = mlp_init(ini, D, cfg.d_ff, dtype)
+        return p
 
     def load_jax_params(self, np_tree: Dict) -> None:
         """Load the JAX package's parameter pytree (nested dicts of numpy)."""
@@ -88,49 +140,123 @@ class DecoderLM(nn.Module):
             logits = torch.where(iota < cfg.vocab_size, logits, -1e30)
         return logits
 
-    def _trunk(self, x: torch.Tensor) -> torch.Tensor:
-        for layer in self.blocks:
-            h = norm_apply(layer["norm1"], x, self.cfg.norm)
-            x = x + ssm_apply(layer["ssm"], h, self.cfg, self.rt)
-        return x
+    def _mlp_sublayer(self, p, x: torch.Tensor) -> torch.Tensor:
+        h2 = norm_apply(p["norm2"], x, self.cfg.norm)
+        return x + mlp_apply(p["mlp"], h2, self.cfg.act)
+
+    def _apply_block(self, kind: str, p, x, *, positions, segments):
+        cfg, rt = self.cfg, self.rt
+        h = norm_apply(p["norm1"], x, cfg.norm)
+        if kind == "ssm":
+            return x + ssm_apply(p["ssm"], h, cfg, rt)
+        if kind == "rec":
+            mix = rec_apply(p["rec"], h, cfg, rt)
+        else:
+            mix = attn_apply(p["attn"], h, cfg, rt, positions=positions,
+                             causal=True, window=_block_window(kind, cfg),
+                             segments=segments)
+        return self._mlp_sublayer(p, x + mix)
+
+    def _positions(self, x: torch.Tensor, positions):
+        if positions is None:
+            B, S = x.shape[:2]
+            positions = torch.arange(S, device=x.device).expand(B, S)
+        return positions
 
     def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Training/eval forward -> fp32 logits (B, S, V_pad)."""
-        return self._logits(self._trunk(self._embed(batch["tokens"])))
+        x = self._embed(batch["tokens"])
+        positions = self._positions(x, batch.get("positions"))
+        segments = batch.get("segments")
+        for kind, p in zip(self.kinds, self.blocks):
+            x = self._apply_block(kind, p, x, positions=positions, segments=segments)
+        return self._logits(x)
 
     # ------------------------------------------------------------------ serve
 
+    def _init_block_cache(self, kind: str, batch: int) -> Dict:
+        cfg, rt = self.cfg, self.rt
+        dtype = rt.compute_dtype
+        if kind == "ssm":
+            return init_ssm_cache(cfg, batch, dtype, self.device)
+        if kind == "rec":
+            return init_rec_cache(cfg, batch, dtype, self.device)
+        length = rt.max_cache_len
+        window = _block_window(kind, cfg)
+        if window is not None:
+            length = min(length, _cache_round(window))
+        if length <= 0:
+            raise ValueError("attention layers need a KV cache: set "
+                             "RuntimeConfig.max_cache_len > 0")
+        return init_kv_cache(cfg, batch, length, dtype, self.device)
+
     def init_cache(self, batch: int) -> List[Dict]:
-        """Allocate the decode cache: one {"ssd", "conv"} dict per layer."""
-        return [init_ssm_cache(self.cfg, batch, self.rt.compute_dtype,
-                               self.device) for _ in self.blocks]
+        """Allocate the decode cache, one dict per layer (window-bounded
+        layers allocate only the window)."""
+        return [self._init_block_cache(kind, batch) for kind in self.kinds]
 
     @torch.inference_mode()
-    def prefill(self, tokens: torch.Tensor):
-        """Run the full prompt, return (last-position logits, cache, length)."""
+    def prefill(self, tokens: torch.Tensor, positions: Optional[torch.Tensor] = None,
+                segments: Optional[torch.Tensor] = None):
+        """Run the full prompt, return (last-position logits, cache, length).
+
+        ``positions`` default to ``arange(S)`` per row; ``segments`` (B, S)
+        mask attention across packed or padded sequences (0 = pad).
+        """
         x = self._embed(tokens)
-        cache = []
-        for layer in self.blocks:
-            h = norm_apply(layer["norm1"], x, self.cfg.norm)
-            y, state = ssm_apply(layer["ssm"], h, self.cfg, self.rt,
-                                 return_state=True)
-            state["conv"] = state["conv"].to(self.rt.compute_dtype)
-            cache.append(state)
-            x = x + y
-        return self._logits(x[:, -1:, :]), cache, x.shape[1]
+        positions = self._positions(x, positions)
+        cache = self.init_cache(x.shape[0])
+        filled = []
+        for kind, p, layer_cache in zip(self.kinds, self.blocks, cache):
+            x, state = self._prefill_block(kind, p, x, layer_cache, positions,
+                                           segments)
+            filled.append(state)
+        return self._logits(x[:, -1:, :]), filled, x.shape[1]
+
+    def _prefill_block(self, kind: str, p, x, cache, positions, segments=None):
+        cfg, rt = self.cfg, self.rt
+        h = norm_apply(p["norm1"], x, cfg.norm)
+        if kind == "ssm":
+            y, state = ssm_apply(p["ssm"], h, cfg, rt, return_state=True)
+            state["conv"] = state["conv"].to(cache["conv"].dtype)
+            return x + y, state
+        if kind == "rec":
+            mix, state = rec_apply(p["rec"], h, cfg, rt, return_state=True)
+            state["conv"] = state["conv"].to(cache["conv"].dtype)
+        else:
+            mix, (k, v) = attn_apply(
+                p["attn"], h, cfg, rt, positions=positions, causal=True,
+                window=_block_window(kind, cfg), segments=segments,
+                return_kv=True)
+            state = _write_ring(cache, k, v)
+        return self._mlp_sublayer(p, x + mix), state
 
     @torch.inference_mode()
-    def decode_step(self, cache: List[Dict], token: torch.Tensor, pos: int):
-        """token: (B, 1) int; pos: absolute position (unused by SSM layers).
+    def decode_step(self, cache: List[Dict], token: torch.Tensor, pos: int,
+                    context_start: Optional[torch.Tensor] = None):
+        """token: (B, 1) int; pos: absolute position (RoPE and the ring
+        buffers use it); ``context_start``: optional (B,) first valid slot.
 
         Returns (logits (B, 1, V_pad), new cache).
         """
         x = self._embed(token)
         new_cache = []
-        for layer, layer_cache in zip(self.blocks, cache):
-            h = norm_apply(layer["norm1"], x, self.cfg.norm)
-            y, state = ssm_decode(layer["ssm"], h, layer_cache, self.cfg,
-                                  self.rt)
+        for kind, p, layer_cache in zip(self.kinds, self.blocks, cache):
+            x, state = self._decode_block(kind, p, x, layer_cache, pos,
+                                          context_start)
             new_cache.append(state)
-            x = x + y
         return self._logits(x), new_cache
+
+    def _decode_block(self, kind: str, p, x_t, cache, pos, context_start=None):
+        cfg, rt = self.cfg, self.rt
+        h = norm_apply(p["norm1"], x_t, cfg.norm)
+        if kind == "ssm":
+            y, state = ssm_decode(p["ssm"], h, cache, cfg, rt)
+            return x_t + y, state
+        if kind == "rec":
+            mix, state = rec_decode(p["rec"], h, cache, cfg, rt)
+        else:
+            mix, state = attn_decode(p["attn"], h, cache, pos, cfg, rt,
+                                     window=_block_window(kind, cfg),
+                                     context_start=context_start)
+        return self._mlp_sublayer(p, x_t + mix), state

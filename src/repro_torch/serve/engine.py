@@ -83,10 +83,12 @@ class ServeEngine:
     def _take_wave(self) -> List[Request]:
         """Up to ``max_batch`` queued prompts of the first one's length.
 
-        Every family ported so far is stateful (SSM): its recurrence would
-        ingest pad tokens before the content, so a wave holds only
-        equal-length prompts and is never padded.  (The reference pads the
-        waves of attention families and masks the pads by segment.)
+        Every family ported so far is stateful (SSM, or RG-LRU beside local
+        attention): its recurrence would ingest pad tokens before the
+        content, so a wave holds only equal-length prompts and is never
+        padded, as in the reference.  (The reference pads the waves of
+        attention-only families and masks the pads by segment; those
+        families are not ported yet.)
         """
         L0 = len(self._queue[0].prompt)
         wave, rest = [], []
@@ -104,9 +106,14 @@ class ServeEngine:
         S = len(wave[0].prompt)
         tokens = np.stack([r.prompt for r in wave])
 
+        # As the reference: positions in the wave's coordinates, segment 1
+        # for content (0 would mark pads; equal-length waves have none).
+        positions = torch.arange(S, dtype=torch.int32, device=self.device)
         t0 = time.perf_counter()
         logits, cache, _ = self.model.prefill(
-            torch.as_tensor(tokens, device=self.device))
+            torch.as_tensor(tokens, device=self.device),
+            positions=positions.expand(B, S),
+            segments=torch.ones((B, S), dtype=torch.int32, device=self.device))
         max_new = max(r.max_new_tokens for r in wave)
         tok = self._sample(logits[:, -1, :], wave)
         host_tok = tok[:, 0].tolist()                   # waits for the device

@@ -4,8 +4,8 @@
 numpy arrays (``jax.tree.map(np.asarray, params)``) and returns a state dict
 for :class:`repro_torch.models.DecoderLM`.  Superblock params, stacked on a
 leading repeat dim under ``blocks/pos<j>``, are unstacked into layer
-``r * len(pattern) + j``.  (The ported ``("ssm",)`` pattern has one block
-per superblock and no unscanned ``tail`` layers.)
+``r * len(pattern) + j``; the unscanned remainder layers under
+``tail/tail<j>`` become layer ``n_repeats * len(pattern) + j``.
 Weights keep their ``(d_in, d_out)`` orientation.  bf16 arrays (numpy dtype
 named ``bfloat16``) cross through a ``uint16`` view, because
 ``torch.from_numpy`` does not take them.
@@ -39,13 +39,18 @@ def _flatten(tree: Dict, prefix: str, out: Dict[str, torch.Tensor]) -> None:
 
 def params_from_jax(np_tree: Dict) -> Dict[str, torch.Tensor]:
     state: Dict[str, torch.Tensor] = {}
-    _flatten({k: v for k, v in np_tree.items() if k != "blocks"}, "", state)
-    blocks = np_tree["blocks"]
+    _flatten({k: v for k, v in np_tree.items() if k not in ("blocks", "tail")},
+             "", state)
+    blocks = np_tree.get("blocks", {})
     k = len(blocks)
+    n_repeats = 0
     for j in range(k):
         layer_leaves: Dict[str, torch.Tensor] = {}
         _flatten(blocks[f"pos{j}"], "", layer_leaves)
         for name, stacked in layer_leaves.items():
-            for r in range(stacked.shape[0]):
+            n_repeats = stacked.shape[0]
+            for r in range(n_repeats):
                 state[f"blocks.{r * k + j}.{name}"] = stacked[r].clone()
+    for j in range(len(np_tree.get("tail", {}))):
+        _flatten(np_tree["tail"][f"tail{j}"], f"blocks.{n_repeats * k + j}.", state)
     return state

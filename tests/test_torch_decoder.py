@@ -1,13 +1,17 @@
-"""The port's DecoderLM against ``repro.models.DecoderLM`` (mamba2 smoke
-config) on weights initialised by JAX and carried across by
-``params_from_jax``.
+"""The port's DecoderLM against ``repro.models.DecoderLM`` on weights
+initialised by JAX and carried across by ``params_from_jax``.
 
-Prompts of 10, 16 and 48 tokens cover a chunk shorter than ssm_chunk=16,
-exactly one chunk, and three chunks.  fp32 compute, tolerance 3e-4
+mamba2 (smoke config): prompts of 10, 16 and 48 tokens cover a chunk shorter
+than ssm_chunk=16, exactly one chunk, and three chunks.  recurrentgemma
+(smoke config with n_layers=5: one scanned (rec, rec, local) superblock and
+two unscanned tail layers): prompts of 16, 48 and 80 tokens against a local
+window of 32 in a 64-slot ring (max_cache_len=64), so window masking and the
+ring's wrap both run.  fp32 compute, tolerance 3e-4
 (tests/test_kernels.py::_tol).
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -110,12 +114,19 @@ def test_entry_points_refuse_quiet_fallbacks():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build_model(cfg)                      # default device is cuda
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build_model(get_smoke_config(RG_ARCH))
     with pytest.raises(NotImplementedError, match="attention slice"):
         build_model(get_smoke_config("stablelm-1.6b"), device="cpu")
-    with pytest.raises(NotImplementedError, match="recurrent slice"):
-        build_model(get_smoke_config("recurrentgemma-9b"), device="cpu")
+    with pytest.raises(NotImplementedError, match="MoE"):
+        build_model(get_smoke_config("mixtral-8x22b"), device="cpu")
     with pytest.raises(NotImplementedError, match="encoder-decoder"):
         build_model(get_smoke_config("seamless-m4t-medium"), device="cpu")
+    # recurrentgemma is ported: it builds, and its attention layers refuse to
+    # serve without a KV cache rather than allocate an empty one.
+    model = build_model(get_smoke_config(RG_ARCH), device="cpu")
+    with pytest.raises(ValueError, match="max_cache_len"):
+        model.prefill(torch.zeros((1, 4), dtype=torch.int64))
 
 
 def test_full_config_matches_reference_config():
@@ -128,3 +139,107 @@ def test_full_config_matches_reference_config():
     assert ARCHS == JAX_ARCHS
     for arch in ARCHS:
         assert get_config(arch).__dict__ == jax_get_config(arch).__dict__, arch
+
+
+# ---------------------------------------------------------------------------
+# recurrentgemma: rec + local attention, with unscanned tail layers
+# ---------------------------------------------------------------------------
+
+RG_ARCH = "recurrentgemma-9b"
+
+
+@functools.lru_cache(maxsize=None)
+def _rg_pair(attn_impl, rglru_impl):
+    jrt = JaxRuntimeConfig(compute_dtype=jnp.float32, attn_impl=attn_impl,
+                           rglru_impl=rglru_impl, max_cache_len=64)
+    jcfg = dataclasses.replace(jax_smoke_config(RG_ARCH), n_layers=5)
+    jmodel = jax_build_model(jcfg, jrt)
+    jparams = jmodel.init(jax.random.PRNGKey(0))
+    trt = RuntimeConfig(compute_dtype=torch.float32, max_cache_len=64)
+    tcfg = dataclasses.replace(get_smoke_config(RG_ARCH), n_layers=5)
+    tmodel = build_model(tcfg, trt, device="cpu", seed=1)
+    tmodel.load_jax_params(jax.tree.map(np.asarray, jparams))
+    return jmodel, jparams, tmodel
+
+
+def _jax_layer_cache(jcache, layer, k=3, n_repeats=1):
+    if layer < n_repeats * k:
+        return jax.tree.map(lambda a: a[layer // k],
+                            jcache["blocks"][f"pos{layer % k}"])
+    return jcache[f"tail{layer - n_repeats * k}"]
+
+
+@pytest.mark.parametrize("impls,prompt_len", [
+    (("pallas_interpret", "pallas_interpret"), 16),
+    (("pallas_interpret", "pallas_interpret"), 48),
+    (("pallas_interpret", "pallas_interpret"), 80),
+    (("naive", "xla"), 80)])
+def test_recurrentgemma_prefill_and_decode_match_jax(impls, prompt_len):
+    jmodel, jparams, tmodel = _rg_pair(*impls)
+    assert tmodel.kinds == ["rec", "rec", "local", "rec", "rec"]
+    rng = np.random.default_rng(prompt_len)
+    tokens = rng.integers(3, 512, size=(2, prompt_len)).astype(np.int32)
+    jprefill = jax.jit(jmodel.prefill)                  # interpret mode is slow
+    jdecode = jax.jit(jmodel.decode_step)               # op by op
+    jlogits, jcache, jpos = jprefill(jparams, jnp.asarray(tokens))
+    jpos = int(jpos)
+    tlogits, tcache, tpos = tmodel.prefill(torch.from_numpy(tokens))
+    assert tpos == jpos == prompt_len
+    _close(tlogits, jlogits)
+    for layer, kind in enumerate(tmodel.kinds):
+        want = _jax_layer_cache(jcache, layer)
+        assert set(tcache[layer]) == set(want)
+        for name, t in tcache[layer].items():
+            assert tuple(t.shape) == want[name].shape, (layer, name)
+            _close(t, want[name])
+    tok = np.argmax(np.asarray(jlogits)[:, -1], axis=-1)[:, None].astype(np.int32)
+    for step in range(8):
+        jlogits, jcache = jdecode(jparams, jcache, jnp.asarray(tok),
+                                  jnp.asarray(jpos + step, jnp.int32))
+        tlogits, tcache = tmodel.decode_step(tcache, torch.from_numpy(tok),
+                                             tpos + step)
+        _close(tlogits, jlogits)
+        tok = np.argmax(np.asarray(jlogits)[:, -1], axis=-1)[:, None] \
+            .astype(np.int32)
+    for layer in (2,):                           # the ring after 8 more tokens
+        for name in ("k", "v"):
+            _close(tcache[layer][name], _jax_layer_cache(jcache, layer)[name])
+
+
+def test_recurrentgemma_forward_with_segments_matches_jax():
+    jmodel, jparams, tmodel = _rg_pair("naive", "xla")
+    rng = np.random.default_rng(5)
+    tokens = rng.integers(3, 512, size=(2, 40)).astype(np.int32)
+    segments = np.ones((2, 40), np.int32)
+    segments[:, 20:] = 2                          # two packed sequences per row
+    positions = np.concatenate([np.arange(20), np.arange(20)]).astype(np.int32)
+    positions = np.broadcast_to(positions, (2, 40))
+    batch = {"tokens": tokens, "segments": segments, "positions": positions}
+    jlogits = jmodel.forward(jparams, {k: jnp.asarray(v) for k, v in batch.items()})
+    with torch.no_grad():
+        tlogits = tmodel({k: torch.from_numpy(np.ascontiguousarray(v))
+                          for k, v in batch.items()})
+    _close(tlogits, jlogits)
+
+
+def test_recurrentgemma_state_dict_keys_cover_tail():
+    _, jparams, tmodel = _rg_pair("naive", "xla")
+    np_tree = jax.tree.map(np.asarray, jparams)
+    assert set(np_tree["tail"]) == {"tail0", "tail1"}
+    state = params_from_jax(np_tree)
+    own = tmodel.state_dict()
+    assert set(state) == set(own)
+    for k, v in state.items():
+        assert v.shape == own[k].shape, k
+    np.testing.assert_array_equal(state["blocks.4.rec.gate_r"].numpy(),
+                                  np_tree["tail"]["tail1"]["rec"]["gate_r"])
+    np.testing.assert_array_equal(state["blocks.2.attn.wq.w"].numpy(),
+                                  np_tree["blocks"]["pos2"]["attn"]["wq"]["w"][0])
+    assert state["blocks.0.rec.lam"].dtype == torch.float32
+
+
+def test_recurrentgemma_full_config_matches_reference():
+    cfg = get_config(RG_ARCH)
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+            cfg.local_window, cfg.d_ff, cfg.lru_width, cfg.pattern) == \
+        (38, 4096, 16, 1, 256, 2048, 12288, 4096, ("rec", "rec", "local"))

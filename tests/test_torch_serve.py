@@ -1,6 +1,6 @@
 """The port's ServeEngine against the JAX package's (tests/test_serve_engine.py
-for mamba2): on the same weights, greedy tokens must agree token for token,
-including EOS stopping and how the queue drains in waves."""
+for mamba2 and recurrentgemma): on the same weights, greedy tokens must agree
+token for token, including EOS stopping and how the queue drains in waves."""
 
 import numpy as np
 import pytest
@@ -96,3 +96,47 @@ def test_serve_driver_runs_on_cpu():
     out = serve_driver.main(["--smoke", "--device", "cpu", "--batch", "2",
                              "--prompt-len", "16", "--gen", "3"])
     assert out["tokens"].shape == (2, 3)
+
+
+RG_ARCH = "recurrentgemma-9b"
+
+
+@pytest.fixture(scope="module")
+def rg_models():
+    """recurrentgemma smoke config with 5 layers (2 unscanned tail layers),
+    local window 32 in a 64-slot ring."""
+    import dataclasses
+    jcfg = dataclasses.replace(jax_smoke_config(RG_ARCH), n_layers=5)
+    jmodel = jax_build_model(jcfg, JRT)
+    jparams = jmodel.init(jax.random.PRNGKey(0))
+    tcfg = dataclasses.replace(get_smoke_config(RG_ARCH), n_layers=5)
+    tmodel = build_model(tcfg, TRT.with_(max_cache_len=64), device="cpu")
+    tmodel.load_jax_params(jax.tree.map(np.asarray, jparams))
+    return jmodel, jparams, tmodel
+
+
+def test_recurrentgemma_greedy_matches_jax(rg_models):
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(3, 512, size=n).astype(np.int32)
+               for n in (16, 16, 80, 80)]
+    jdone, tdone, teng = _serve_both(rg_models, prompts, 2, max_new_tokens=6)
+    assert [r.output for r in tdone] == [r.output for r in jdone]
+    assert [r.wave for r in tdone] == [r.wave for r in jdone]
+    assert all(len(r.output) == 6 and r.done for r in tdone)
+    assert [s["prompt_len"] for s in teng.wave_stats] == [16, 80]
+
+
+def test_recurrentgemma_eos_stops_early(rg_models):
+    prompt = np.arange(3, 43, dtype=np.int32)
+    [jfull], [tfull], _ = _serve_both(rg_models, [prompt], 4, max_new_tokens=6)
+    assert tfull.output == jfull.output
+    eos = tfull.output[3]
+    [jreq], [treq], _ = _serve_both(rg_models, [prompt], 4, max_new_tokens=6,
+                                    eos_id=eos)
+    assert treq.output == jreq.output == tfull.output[:tfull.output.index(eos) + 1]
+
+
+def test_serve_driver_runs_recurrentgemma_on_cpu():
+    out = serve_driver.main(["--arch", RG_ARCH, "--smoke", "--device", "cpu",
+                             "--batch", "2", "--prompt-len", "40", "--gen", "30"])
+    assert out["tokens"].shape == (2, 30)       # decode runs past the window
