@@ -7,11 +7,15 @@ Phases (any failure exits non-zero before the last line is printed):
 
 1. device: the card's name and power limit from nvidia-smi;
 2. kernels: builds every CUDA kernel from ``src/repro_torch/kernels/*/csrc``
-   (one nvcc per source, in parallel), holds each against its plain PyTorch
-   version computed in float64 on the card (bf16 outputs of flash attention
-   and RG-LRU within one bf16 ulp), and times both with CUDA events
-   (flash attention also against ``scaled_dot_product_attention`` as a
-   yardstick the port never calls);
+   (one nvcc per source, in parallel) and prints ptxas's register report,
+   holds each against its plain PyTorch version computed in float64 on the
+   card (bf16 RG-LRU outputs within one bf16 ulp; bf16 flash-attention
+   outputs within ``bf16_flash_limit``, one ulp plus what rounding P to bf16
+   for the tensor cores can add), and times both with CUDA events (flash
+   attention also against ``scaled_dot_product_attention`` as a yardstick
+   the port never calls).  Flash attention has two kernels, chosen by dtype
+   and head_dim: ``flash_fwd_wgmma`` (bf16 tensor cores, the serving path)
+   and ``flash_fwd`` (fp32 and small head_dims);
 3. serve mamba2-1.3b at full width and depth (48 layers, d_model 2048,
    random weights from a seed, fp32 params, bf16 compute) through
    ``ServeEngine(max_batch=4)``: after a cold-start wave, a wave of
@@ -24,7 +28,8 @@ Phases (any failure exits non-zero before the last line is printed):
    prompts: longer than the 2048 window, so window masking, tile skipping and
    the ring write all run) and wave B (4 x 1024), 32 greedy tokens each.
    Every count is set to 0 before each wave; after it the RG-LRU kernel
-   must read 26, flash attention 12 and SSD 0;
+   must read 26, flash attention 12 (all 12 on ``flash_fwd_wgmma``) and
+   SSD 0;
 5. reference: smoke-size models on the card in fp32, kernel path against the
    plain path: mamba2 (prefill and one decode step) and recurrentgemma with
    5 layers (two unscanned tail layers; 48- and 80-token prompts against a
@@ -55,10 +60,13 @@ HBM_BYTES_PER_S = 3.35e12            # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {"float32": 67e12,      # CUDA cores, no tensor cores
               "bfloat16": 989e12}    # dense bf16 tensor cores
 TOL = {"float32": 3e-4, "bfloat16": 5e-2}   # tests/test_kernels.py::_tol
-# flash_fwd and rglru_fwd compute in fp32 and round a bf16 output once, so
-# they are held to one bf16 ulp of the float64 result (2^-7 relative) plus
-# fp32 slack, as (atol, rtol).  _tol's 5e-2 exceeds a typical |attention
-# output| at the serving shape and would pass a wrong kernel.
+# rglru_fwd computes in fp32 and rounds a bf16 output once, so it is held to
+# one bf16 ulp of the float64 result (2^-7 relative) plus fp32 slack, as
+# (atol, rtol); fp32 outputs of every kernel to 3e-4.  bf16 flash attention
+# rounds P to bf16 for the tensor cores as well, so it is held to
+# ``bf16_flash_limit`` (one ulp plus 2^-8 of the float64 result on |v|).
+# _tol's 5e-2 exceeds a typical |attention output| at the serving shape and
+# would pass a wrong kernel.
 ROUNDED_TOL = {"float32": (3e-4, 3e-4), "bfloat16": (1e-4, 2 ** -7)}
 KERNEL_CHUNK = 64                    # ssd_fwd.cu's internal chunk length
 
@@ -156,16 +164,23 @@ def rglru_bound(B, S, W, dtype: str, with_h0: bool):
 
 def close(torch, got, want, atol, rtol):
     """(ok, max |got - want|): within ``atol + rtol |want|`` and finite."""
+    return within(torch, got, want, atol + rtol * want.abs())[:2]
+
+
+def within(torch, got, want, limit):
+    """(ok, max |got - want|, max |got - want| / limit): within the
+    per-element ``limit`` and finite."""
     diff = (got.double() - want).abs()
-    ok = bool((diff <= atol + rtol * want.abs()).all().item())
-    return ok and bool(torch.isfinite(got).all().item()), diff.max().item()
+    ok = bool((diff <= limit).all().item()) and bool(torch.isfinite(got).all().item())
+    return ok, diff.max().item(), (diff / limit).max().item()
 
 
 def check_flash(torch, case, gen):
     """Kernel vs plain version on one input set; returns a result dict."""
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention.kernel import flash_cuda
+    from repro_torch.kernels.flash_attention.kernel import WGMMA_HEAD_DIMS, flash_cuda
     from repro_torch.kernels.flash_attention.ops import _flash_chunked
+    from repro_torch.kernels.flash_attention.ref import bf16_flash_limit
     (label, B, Sq, Sk, Hq, Hkv, D, dtype, causal, window, cap, q_offset,
      seg_kind, block) = case
     tdt = getattr(torch, dtype)
@@ -186,11 +201,24 @@ def check_flash(torch, case, gen):
                 kv_segments=ks, q_offset=q_offset)
     plain = dict(opts, scale=None, block_q=block[0], block_k=block[1])
 
+    kernel = ("flash_fwd_wgmma" if dtype == "bfloat16" and D in WGMMA_HEAD_DIMS
+              else "flash_fwd")
     out = flash_cuda(q, k, v, **opts)
     torch.cuda.synchronize()
     want = _flash_chunked(q.double(), k.double(), v.double(), **plain)
-    tol = ROUNDED_TOL[dtype]
-    ok, err = close(torch, out, want, *tol)
+    if dtype == "bfloat16":
+        # sum_s p_s |v_s| / l: what rounding P to bf16 can move the output by.
+        want_absv = _flash_chunked(q.double(), k.double(), v.double().abs(), **plain)
+        tol = "bf16_flash_limit"
+        limit = bf16_flash_limit(want, want_absv)
+        median_absv = want_absv.float().median().item()
+        del want_absv
+    else:
+        tol = ROUNDED_TOL[dtype]
+        limit = tol[0] + tol[1] * want.abs()
+        median_absv = None
+    ok, err, ratio = within(torch, out, want, limit)
+    del limit
     typical = want.abs().float().median().item()
     ms = time_ms(torch, lambda: flash_cuda(q, k, v, **opts))
     plain_ms = time_ms(torch, lambda: _flash_chunked(q, k, v, **plain), reps=11)
@@ -207,20 +235,21 @@ def check_flash(torch, case, gen):
         mask = mask & (qs[:, :, None] == ks[:, None, :])
     bound_ms, bound_by = flash_bound(torch, q, k, mask, dtype)
     library_ms = None
-    if label == "serve wave A":
+    if label.startswith("serve wave A"):
         # One PyTorch call for the same function: SDPA with the boolean
         # causal, window and segment mask (no softcap on this path).
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         attn_mask = mask[:, None]
         library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=attn_mask, enable_gqa=True), reps=11)
-    res = {"case": label, "shape": [B, Sq, Sk, Hq, Hkv, D], "dtype": dtype,
-           "causal": causal, "window": window, "softcap": cap,
+    res = {"case": label, "kernel": kernel, "shape": [B, Sq, Sk, Hq, Hkv, D],
+           "dtype": dtype, "causal": causal, "window": window, "softcap": cap,
            "q_offset": q_offset, "segments": seg_kind, "err": err,
-           "median_abs_out": typical, "tol": tol, "ok": ok, "ms": ms,
+           "err_over_limit": ratio, "median_abs_out": typical,
+           "median_absv": median_absv, "tol": tol, "ok": ok, "ms": ms,
            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
            "library_ms": library_ms}
-    log("flash_fwd check " + json.dumps(res))
+    log(f"{kernel} check " + json.dumps(res))
     return res
 
 
@@ -353,12 +382,16 @@ def profile_serve(torch, model, tokens, decode_steps: int = 8) -> None:
             sort_by="self_device_time_total", row_limit=40))
 
 
-def counts():
-    """The three kernels' launch counters."""
+def counters():
+    """The launch counters, as (wrapper, attribute).  ``flash_fwd`` counts
+    every flash-attention launch, of either kernel; ``flash_fwd_wgmma`` the
+    tensor-core kernel's alone."""
     from repro_torch.kernels.flash_attention.kernel import flash_cuda
     from repro_torch.kernels.rglru.kernel import rglru_cuda
     from repro_torch.kernels.ssd.kernel import ssd_cuda
-    return {"ssd_fwd": ssd_cuda, "rglru_fwd": rglru_cuda, "flash_fwd": flash_cuda}
+    return {"ssd_fwd": (ssd_cuda, "launches"), "rglru_fwd": (rglru_cuda, "launches"),
+            "flash_fwd": (flash_cuda, "launches"),
+            "flash_fwd_wgmma": (flash_cuda, "wgmma_launches")}
 
 
 def serve_waves(torch, model, cold_len: int, wave_lens, expect: dict, tag: str,
@@ -387,10 +420,10 @@ def serve_waves(torch, model, cold_len: int, wave_lens, expect: dict, tag: str,
                                 generator=prompt_gen).numpy()
         wave_prompts.append(prompts)
         ids = [engine.submit(p, max_new_tokens=32) for p in prompts]
-        for fn in counts().values():
-            fn.launches = 0
+        for fn, attr in counters().values():
+            setattr(fn, attr, 0)
         engine.run()
-        got = {name: fn.launches for name, fn in counts().items()}
+        got = {name: getattr(fn, attr) for name, (fn, attr) in counters().items()}
         for name, want in expect.items():
             if got[name] != want:
                 fail(f"{tag} wave of {prompt_len}-token prompts launched {name} "
@@ -505,7 +538,7 @@ def main() -> None:
     log(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
     for name, path in libs.items():
         for line in Path(str(path) + ".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Performance Loss" in line:
                 log(f"  {name}: {line.strip()}")
     gen = torch.Generator(device="cuda").manual_seed(0)
     ssd_cases = [
@@ -519,6 +552,8 @@ def main() -> None:
         # label, B, Sq, Sk, Hq, Hkv, D, dtype, causal, window, softcap,
         # q_offset, segments, plain (block_q, block_k)
         ("serve wave A", 4, 3072, 3072, 16, 1, 256, "bfloat16", True, 2048, None,
+         0, "ones", (512, 1024)),
+        ("serve wave A fp32", 4, 3072, 3072, 16, 1, 256, "float32", True, 2048, None,
          0, "ones", (512, 1024)),
         ("ragged fp32", 2, 300, 300, 8, 2, 64, "float32", True, 100, None, 0, None,
          (300, 300)),
@@ -539,8 +574,10 @@ def main() -> None:
         ("fp32 with h0", 2, 1024, 4096, "float32", True),
         ("ragged S", 3, 1001, 1000, "bfloat16", True),
     ]
+    flash = [check_flash(torch, c, gen) for c in flash_cases]
     checks = {"ssd_fwd": [check_ssd(torch, c, gen) for c in ssd_cases],
-              "flash_fwd": [check_flash(torch, c, gen) for c in flash_cases],
+              "flash_fwd_wgmma": [c for c in flash if c["kernel"] == "flash_fwd_wgmma"],
+              "flash_fwd": [c for c in flash if c["kernel"] == "flash_fwd"],
               "rglru_fwd": [check_rglru(torch, c, gen) for c in rglru_cases]}
     for name, results in checks.items():
         bad = [c["case"] for c in results if not c["ok"]]
@@ -560,7 +597,8 @@ def main() -> None:
         f"{time.perf_counter() - t0:.1f} s")
     prompts, launches = serve_waves(
         torch, model, 512, (512, 256),
-        {"ssd_fwd": cfg.n_layers, "rglru_fwd": 0, "flash_fwd": 0}, "mamba2", prompt_gen)
+        {"ssd_fwd": cfg.n_layers, "rglru_fwd": 0, "flash_fwd": 0, "flash_fwd_wgmma": 0},
+        "mamba2", prompt_gen)
     if profiling:
         profile_serve(torch, model, torch.as_tensor(prompts[0], device="cuda"))
     full_width_logits(torch, model, prompts[-1], {"ssd_impl": "chunked"}, "mamba2")
@@ -581,8 +619,8 @@ def main() -> None:
         f"params, built in {time.perf_counter() - t0:.1f} s")
     prompts, rg_launches = serve_waves(
         torch, model, 1024, (3072, 1024),
-        {"ssd_fwd": 0, "rglru_fwd": n_rec, "flash_fwd": n_local}, "recurrentgemma",
-        prompt_gen)
+        {"ssd_fwd": 0, "rglru_fwd": n_rec, "flash_fwd": n_local,
+         "flash_fwd_wgmma": n_local}, "recurrentgemma", prompt_gen)
     for name, n in rg_launches.items():
         launches[name] += n
     if profiling:
@@ -600,12 +638,17 @@ def main() -> None:
     smoke_reference(torch, rg_small, {"attn_impl": "chunked", "rglru_impl": "scan"},
                     (48, 80), 8, seed=4, max_cache_len=64)
 
-    # The main path's largest call of each kernel.
-    main_case = {"ssd_fwd": "serve wave 1", "flash_fwd": "serve wave A",
-                 "rglru_fwd": "serve wave A"}
+    # The main path's largest call of each kernel (flash_fwd, off the main
+    # path, at the serving shape in fp32).  flash_fwd's own launches are the
+    # flash launches that did not take the tensor-core route.
+    main_case = {"ssd_fwd": "serve wave 1", "flash_fwd_wgmma": "serve wave A",
+                 "flash_fwd": "serve wave A fp32", "rglru_fwd": "serve wave A"}
+    launches["flash_fwd"] -= launches["flash_fwd_wgmma"]
     meta = {
         "ssd_fwd": ("src/repro_torch/kernels/ssd/csrc/ssd_fwd.cu",
                     "src/repro/kernels/ssd/kernel.py:91"),
+        "flash_fwd_wgmma": ("src/repro_torch/kernels/flash_attention/csrc/flash_fwd_wgmma.cu",
+                            "src/repro/kernels/flash_attention/kernel.py:117"),
         "flash_fwd": ("src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu",
                       "src/repro/kernels/flash_attention/kernel.py:117"),
         "rglru_fwd": ("src/repro_torch/kernels/rglru/csrc/rglru_fwd.cu",
@@ -614,7 +657,8 @@ def main() -> None:
     entries = []
     for name, results in checks.items():
         main_path = next(c for c in results if c["case"] == main_case[name])
-        errs = [max(v for k, v in c.items() if k.startswith("err")) for c in results]
+        errs = [max(v for k, v in c.items() if k in ("err", "err_y", "err_h", "err_state"))
+                for c in results]
         entries.append({
             "name": name, "route": "cuda", "source": meta[name][0],
             "replaces": meta[name][1], "launches": launches[name],

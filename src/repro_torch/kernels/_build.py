@@ -27,6 +27,7 @@ BUILD_DIR = _PKG.parents[2] / "build" / "torch_ext"
 SOURCES: Dict[str, Path] = {
     "ssd_fwd": _PKG / "ssd" / "csrc" / "ssd_fwd.cu",
     "flash_fwd": _PKG / "flash_attention" / "csrc" / "flash_fwd.cu",
+    "flash_fwd_wgmma": _PKG / "flash_attention" / "csrc" / "flash_fwd_wgmma.cu",
     "rglru_fwd": _PKG / "rglru" / "csrc" / "rglru_fwd.cu",
 }
 

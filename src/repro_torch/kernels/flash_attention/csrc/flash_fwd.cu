@@ -1,7 +1,11 @@
-// Flash attention forward for Hopper (sm_90a), plain C interface.
+// Flash attention forward for Hopper (sm_90a) on CUDA cores, plain C
+// interface: fp32 at head_dim 16 .. 256 and bf16 at head_dim 16 and 32.
+// bf16 at head_dim 64, 128 and 256, the serving path, runs on the tensor
+// cores in flash_fwd_wgmma.cu; kernel.py picks the route by dtype and
+// head_dim.
 //
 // Replaces src/repro/kernels/flash_attention/kernel.py::flash_attention_pallas
-// (body _fa_kernel, launcher _call).
+// (body _fa_kernel, launcher _call) for those dtypes and head_dims.
 //
 //   out[b, t, h] = sum_s softmax_s(mask(softcap(scale q_t . k_s))) v_s
 //
@@ -34,7 +38,8 @@
 // PV, 2 operations per multiply-add): ~0.28 ms on the bf16 tensor cores,
 // against ~0.06 ms for the bytes.  So the floor is operations.  This version
 // does its products on CUDA cores in fp32 (67 TFLOP/s peak), which puts its
-// own floor at ~4 ms; mma/wgmma on bf16 tiles is the step to the real one.
+// own floor at ~4 ms; flash_fwd_wgmma.cu takes the bf16 serving shape to the
+// tensor cores.
 // Shared-memory rows are padded so that the 16 rows a half-warp reads at one
 // column fall in distinct banks.
 
@@ -337,11 +342,19 @@ int launch(const void* q, const void* k, const void* v, const int* qseg, const i
   switch (D) {
     case 16: return launch_d<T, 16>(q, k, v, qseg, kseg, out, batch, Sq, Sk, Hq, Hkv, causal, window, q_offset, scale, softcap, s);
     case 32: return launch_d<T, 32>(q, k, v, qseg, kseg, out, batch, Sq, Sk, Hq, Hkv, causal, window, q_offset, scale, softcap, s);
-    case 64: return launch_d<T, 64>(q, k, v, qseg, kseg, out, batch, Sq, Sk, Hq, Hkv, causal, window, q_offset, scale, softcap, s);
-    case 128: return launch_d<T, 128>(q, k, v, qseg, kseg, out, batch, Sq, Sk, Hq, Hkv, causal, window, q_offset, scale, softcap, s);
-    case 256: return launch_d<T, 256>(q, k, v, qseg, kseg, out, batch, Sq, Sk, Hq, Hkv, causal, window, q_offset, scale, softcap, s);
-    default: return (int)cudaErrorInvalidValue;
+    default: break;
   }
+  // bf16 at head_dim 64, 128 and 256 runs on the tensor cores
+  // (flash_fwd_wgmma.cu); this kernel has no instance for it.
+  if constexpr (sizeof(T) == 4) {
+    switch (D) {
+      case 64: return launch_d<T, 64>(q, k, v, qseg, kseg, out, batch, Sq, Sk, Hq, Hkv, causal, window, q_offset, scale, softcap, s);
+      case 128: return launch_d<T, 128>(q, k, v, qseg, kseg, out, batch, Sq, Sk, Hq, Hkv, causal, window, q_offset, scale, softcap, s);
+      case 256: return launch_d<T, 256>(q, k, v, qseg, kseg, out, batch, Sq, Sk, Hq, Hkv, causal, window, q_offset, scale, softcap, s);
+      default: break;
+    }
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace

@@ -1,15 +1,26 @@
-"""Wrapper of the hand-written Hopper flash-attention kernel
-(``csrc/flash_fwd.cu``).
+"""Wrapper of the hand-written Hopper flash-attention kernels
+(``csrc/flash_fwd_wgmma.cu`` and ``csrc/flash_fwd.cu``).
 
 Counterpart of ``repro.kernels.flash_attention.kernel.flash_attention_pallas``:
 the same inputs, options and output, computed by a CUDA kernel compiled for
-``sm_90a`` on first use (see ``kernels/_build.py``).  The kernel tiles by its
-own sizes (64 query rows; 64 keys, 32 at head_dim 256), so the caller's
-block sizes only decide the reference's divisibility asserts in ``ops.py``.
-Ragged Sq and Sk are masked inside the kernel.
+``sm_90a`` on first use (see ``kernels/_build.py``).  Two kernels compute the
+same function; the route is chosen by dtype and head_dim alone:
 
-``flash_cuda.launches`` counts the kernel's launches, so that a run can show
-that its model path went through the kernel.
+=========================  ===========================================
+bf16, head_dim 64/128/256  ``flash_fwd_wgmma``: bf16 tensor cores (wgmma,
+                           TMA, 128-row q tiles, 64-key KV tiles)
+fp32 (head_dim 16..256),   ``flash_fwd``: fp32 on CUDA cores (64-row q
+bf16 head_dim 16/32        tiles, 64 keys, 32 at head_dim 256)
+=========================  ===========================================
+
+The route is not a fallback: each shape has one kernel, and a failure to
+build or launch raises.  The kernels tile by their own sizes, so the
+caller's block sizes only decide the reference's divisibility asserts in
+``ops.py``.  Ragged Sq and Sk are masked inside both kernels.
+
+``flash_cuda.launches`` counts every launch of either kernel, so that a run
+can show that its model path went through one;
+``flash_cuda.wgmma_launches`` counts the tensor-core route's launches.
 """
 
 from __future__ import annotations
@@ -25,21 +36,24 @@ __all__ = ["flash_cuda"]
 
 _DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (16, 32, 64, 128, 256)      # one kernel instance per head_dim
+WGMMA_HEAD_DIMS = (64, 128, 256)        # bf16 head_dims of flash_fwd_wgmma
 _INT_MAX = 2**31 - 1
 
 
-def _lib() -> ctypes.CDLL:
-    lib = load("flash_fwd")
-    fn = lib.flash_fwd_launch
+def _launcher(name: str, n_ints: int):
+    """The C launch function ``<name>_launch`` of kernel ``name``: six
+    pointers, ``n_ints`` ints, scale and softcap, the stream."""
+    fn = getattr(load(name), f"{name}_launch")
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * n_ints
                        + [ctypes.c_float] * 2 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    return lib
+    return fn
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """Contiguous and 16-byte aligned (the kernel reads 16-byte vectors)."""
+    """Contiguous and 16-byte aligned (flash_fwd reads 16-byte vectors; TMA
+    needs a 16-byte aligned base)."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
@@ -98,21 +112,27 @@ def flash_cuda(
         q_segments = q_segments.to(torch.int32).contiguous()
         kv_segments = kv_segments.to(torch.int32).contiguous()
 
+    wgmma = q.dtype == torch.bfloat16 and D in WGMMA_HEAD_DIMS
+    name = "flash_fwd_wgmma" if wgmma else "flash_fwd"
+    # flash_fwd takes one more int than flash_fwd_wgmma: is_bf16.
+    dtype_arg = () if wgmma else (int(q.dtype == torch.bfloat16),)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = _lib().flash_fwd_launch(
+        rc = _launcher(name, 9 + len(dtype_arg))(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             q_segments.data_ptr() if q_segments is not None else None,
             kv_segments.data_ptr() if kv_segments is not None else None,
             out.data_ptr(), B, Sq, Sk, Hq, Hkv, D, int(causal),
-            _INT_MAX if window is None else int(window), int(q_offset),
-            int(q.dtype == torch.bfloat16),
+            _INT_MAX if window is None else int(window), int(q_offset), *dtype_arg,
             float(scale), 0.0 if softcap is None else float(softcap), stream)
     if rc != 0:
-        raise RuntimeError(f"flash_fwd launch failed with CUDA error {rc}")
+        raise RuntimeError(f"{name} launch failed with CUDA error {rc}")
     flash_cuda.launches += 1
+    if wgmma:
+        flash_cuda.wgmma_launches += 1
     return out
 
 
 flash_cuda.launches = 0
+flash_cuda.wgmma_launches = 0

@@ -1,5 +1,6 @@
 """Plain-torch oracle for flash attention (naive, materialises the scores),
-as ``repro.kernels.flash_attention.ref``.
+as ``repro.kernels.flash_attention.ref``, and the error bound that a bf16
+tensor-core kernel is held to against it.
 
 fp32 softmax (fp64 when q is fp64), GQA, causal / sliding-window / softcap /
 segment (packed-sequence) masking.
@@ -11,7 +12,7 @@ from typing import Optional
 
 import torch
 
-__all__ = ["attention_reference"]
+__all__ = ["attention_reference", "bf16_flash_limit"]
 
 NEG_INF = -1e30
 
@@ -63,3 +64,17 @@ def attention_reference(
     probs = torch.where(mask4.any(dim=-1, keepdim=True), probs, 0.0)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, v.to(cdt))
     return out.to(q.dtype)
+
+
+def bf16_flash_limit(want: torch.Tensor, want_absv: torch.Tensor,
+                     atol: float = 1e-4) -> torch.Tensor:
+    """Per-element limit on ``|out - want|`` for a bf16 attention output from
+    a kernel that rounds the probabilities P to bf16 for the PV product.
+
+    ``want`` is the plain result on (q, k, v) and ``want_absv`` the plain
+    result on (q, k, |v|), both in float64: ``want_absv = sum_s p_s |v_s| /
+    l``.  Rounding each p_s to bf16 moves the output by at most bf16's unit
+    roundoff (2^-8) times that; rounding the output to bf16 once adds one
+    bf16 ulp (2^-7 |want|); ``atol`` covers fp32 accumulation.
+    """
+    return atol + 2.0 ** -7 * want.abs() + 2.0 ** -8 * want_absv
