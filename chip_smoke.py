@@ -11,17 +11,24 @@ Phases (any failure exits non-zero before the last line is printed):
    holds each against its plain PyTorch version computed in float64 on the
    card (bf16 RG-LRU outputs within one bf16 ulp; bf16 flash-attention
    outputs within ``bf16_flash_limit``, one ulp plus what rounding P to bf16
-   for the tensor cores can add), and times both with CUDA events (flash
-   attention also against ``scaled_dot_product_attention`` as a yardstick
-   the port never calls).  Flash attention has two kernels, chosen by dtype
-   and head_dim: ``flash_fwd_wgmma`` (bf16 tensor cores, the serving path)
-   and ``flash_fwd`` (fp32 and small head_dims);
+   for the tensor cores can add; bf16 SSD outputs within ``bf16_ssd_limit``,
+   one ulp plus what its three bf16 operand roundings can add, with decays
+   drawn from (0.5, 1) and, where the terms across chunks weigh as much as
+   those inside one, from (0.99, 1)), and times
+   both with CUDA events (a kernel over runs of 10 back-to-back calls, and
+   one call alone as ``call_ms``; flash attention also against
+   ``scaled_dot_product_attention`` as a yardstick the port never calls).
+   Flash attention has two kernels, chosen by dtype and head_dim:
+   ``flash_fwd_wgmma`` (bf16 tensor cores, the serving path) and
+   ``flash_fwd`` (fp32 and small head_dims); so has SSD, by dtype and
+   (P, N): ``ssd_fwd_wgmma`` (bf16 at P 64, N 128, the serving path) and
+   ``ssd_fwd`` (fp32 and other shapes);
 3. serve mamba2-1.3b at full width and depth (48 layers, d_model 2048,
    random weights from a seed, fp32 params, bf16 compute) through
    ``ServeEngine(max_batch=4)``: after a cold-start wave, a wave of
    4 x 512-token prompts and a wave of 4 x 256-token prompts, 32 greedy
-   tokens each.  The SSD kernel's launch count is set to 0 before each of
-   these two waves and must read 48 after it;
+   tokens each.  The SSD launch counts are set to 0 before each of these two
+   waves and must read 48 after it (all 48 on ``ssd_fwd_wgmma``);
 4. serve recurrentgemma-9b at full width and depth (38 layers: 26 RG-LRU
    and 12 local-attention layers, d_model 4096, 9.4 B parameters) the same
    way: after a cold-start wave (4 x 1024, 2 tokens), wave A (4 x 3072-token
@@ -29,7 +36,7 @@ Phases (any failure exits non-zero before the last line is printed):
    the ring write all run) and wave B (4 x 1024), 32 greedy tokens each.
    Every count is set to 0 before each wave; after it the RG-LRU kernel
    must read 26, flash attention 12 (all 12 on ``flash_fwd_wgmma``) and
-   SSD 0;
+   both SSD counts 0;
 5. reference: smoke-size models on the card in fp32, kernel path against the
    plain path: mamba2 (prefill and one decode step) and recurrentgemma with
    5 layers (two unscanned tail layers; 48- and 80-token prompts against a
@@ -47,7 +54,6 @@ from __future__ import annotations
 
 import gc
 import json
-import math
 import statistics
 import subprocess
 import sys
@@ -59,16 +65,17 @@ SRC = Path(__file__).resolve().parent / "src"
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {"float32": 67e12,      # CUDA cores, no tensor cores
               "bfloat16": 989e12}    # dense bf16 tensor cores
-TOL = {"float32": 3e-4, "bfloat16": 5e-2}   # tests/test_kernels.py::_tol
+FP32_TOL = 3e-4                      # tests/test_kernels.py::_tol, fp32
 # rglru_fwd computes in fp32 and rounds a bf16 output once, so it is held to
 # one bf16 ulp of the float64 result (2^-7 relative) plus fp32 slack, as
 # (atol, rtol); fp32 outputs of every kernel to 3e-4.  bf16 flash attention
 # rounds P to bf16 for the tensor cores as well, so it is held to
-# ``bf16_flash_limit`` (one ulp plus 2^-8 of the float64 result on |v|).
-# _tol's 5e-2 exceeds a typical |attention output| at the serving shape and
-# would pass a wrong kernel.
+# ``bf16_flash_limit`` (one ulp plus 2^-8 of the float64 result on |v|), and
+# bf16 SSD to ``bf16_ssd_limit`` (one ulp plus 2^-8 of what each of its three
+# operand roundings can move a term by).  _tol's bf16
+# 5e-2 exceeds a typical |attention output| at the serving shape and would
+# pass a wrong kernel.
 ROUNDED_TOL = {"float32": (3e-4, 3e-4), "bfloat16": (1e-4, 2 ** -7)}
-KERNEL_CHUNK = 64                    # ssd_fwd.cu's internal chunk length
 
 
 def fail(msg: str) -> None:
@@ -89,8 +96,14 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, reps: int = 25, warmup: int = 3) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn`` after ``warmup`` calls."""
+def time_ms(torch, fn, reps: int = 25, warmup: int = 3, per: int = 1) -> float:
+    """Median over ``reps`` CUDA-event timings of ``per`` back-to-back calls
+    of ``fn``, per call, after ``warmup`` calls.
+
+    A kernel's time (``KERNEL_BATCH`` calls a timing) is the card's: the host
+    enqueues ahead, so the wrapper's host work before the first launch falls
+    outside the events.  ``per=1`` gives the time of one call from the host's
+    start, that work included (``call_ms``)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -99,29 +112,44 @@ def time_ms(torch, fn, reps: int = 25, warmup: int = 3) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(per):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / per)
     return statistics.median(times)
 
 
-def ssd_bound(B, S, H, P, N, dtype: str, with_s0: bool):
-    """Least time for ssd_fwd's work: (ms, "bytes" | "operations").
+KERNEL_BATCH = 10
+
+
+def ssd_bound(B, S, H, P, N, dtype: str, with_s0: bool, chunk: int):
+    """Least time for the SSD's work: (ms, "bytes" | "operations"), the same
+    whatever kernel computes it.
 
     Bytes: x, B, C read and y written in their dtype, a read in fp32, the
     initial state read (when given) and the final state written in fp32.
-    Operations: per (batch, head, chunk of c = 64 steps), c^2 N (scores) +
-    c^2 P (intra-chunk output) + 2 c N P (state read-out and update) FMAs,
-    two operations each, at the peak rate of the input dtype.
+    Operations: the chunked algorithm at the caller's chunk (the reference's
+    256), for chunks of L = min(chunk, S - start) steps: per (batch, chunk)
+    the causal half of C B^T, L (L + 1) / 2 N multiply-adds (B and C are
+    shared across heads); per (batch, head, chunk) the causal half of
+    (C B^T ⊙ M) x, L (L + 1) / 2 P, the state update, L N P, and the state
+    read-out, L N P, except in the first chunk when there is no initial
+    state.  Two operations per multiply-add, at the peak rate of the input
+    dtype.  At mamba2's wave 1 (4, 512, 64, 64, 128, bf16, chunk 256, no
+    initial state, so no read-out in the first chunk) this is bytes:
+    43.5 MB, 0.0130 ms, against 5.44 GFLOP, 0.0055 ms.
     """
     elt = 2 if dtype == "bfloat16" else 4
     nbytes = (2 * B * S * H * P * elt + 2 * B * S * N * elt + B * S * H * 4
               + B * H * P * N * 4 * (2 if with_s0 else 1))
-    c = KERNEL_CHUNK
-    flops = (2 * (c * c * N + c * c * P + 2 * c * N * P)
-             * B * H * math.ceil(S / c))
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    macs = 0
+    for g, start in enumerate(range(0, S, chunk)):
+        L = min(chunk, S - start)
+        causal = L * (L + 1) // 2
+        readout = L * N * P if (g > 0 or with_s0) else 0
+        macs += B * causal * N + B * H * (causal * P + L * N * P + readout)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * macs / PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -220,7 +248,8 @@ def check_flash(torch, case, gen):
     ok, err, ratio = within(torch, out, want, limit)
     del limit
     typical = want.abs().float().median().item()
-    ms = time_ms(torch, lambda: flash_cuda(q, k, v, **opts))
+    ms = time_ms(torch, lambda: flash_cuda(q, k, v, **opts), per=KERNEL_BATCH)
+    call_ms = time_ms(torch, lambda: flash_cuda(q, k, v, **opts))
     plain_ms = time_ms(torch, lambda: _flash_chunked(q, k, v, **plain), reps=11)
 
     qp = torch.arange(Sq, device=dev)[:, None] + q_offset
@@ -247,7 +276,7 @@ def check_flash(torch, case, gen):
            "q_offset": q_offset, "segments": seg_kind, "err": err,
            "err_over_limit": ratio, "median_abs_out": typical,
            "median_absv": median_absv, "tol": tol, "ok": ok, "ms": ms,
-           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
            "library_ms": library_ms}
     log(f"{kernel} check " + json.dumps(res))
     return res
@@ -273,13 +302,14 @@ def check_rglru(torch, case, gen):
     ok_y, err_y = close(torch, y, y_ref, *tol_y)
     ok_h, err_h = close(torch, h, h_ref, *tol_h)
     typical = y_ref.abs().float().median().item()
-    ms = time_ms(torch, lambda: rglru_cuda(x, r, i, lam, h0))
+    ms = time_ms(torch, lambda: rglru_cuda(x, r, i, lam, h0), per=KERNEL_BATCH)
+    call_ms = time_ms(torch, lambda: rglru_cuda(x, r, i, lam, h0))
     plain_ms = time_ms(torch, lambda: _rglru_scan(x, r, i, lam, h0), reps=11)
     bound_ms, bound_by = rglru_bound(B, S, W, dtype, with_h0)
     res = {"case": label, "shape": [B, S, W], "dtype": dtype, "h0": with_h0,
            "err_y": err_y, "err_h": err_h, "median_abs_y": typical,
            "tol_y": tol_y, "tol_h": tol_h, "ok": ok_y and ok_h,
-           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
            "bound_by": bound_by}
     log("rglru_fwd check " + json.dumps(res))
     return res
@@ -287,34 +317,56 @@ def check_rglru(torch, case, gen):
 
 def check_ssd(torch, case, gen):
     """Kernel vs plain version on one input set; returns a result dict."""
-    from repro_torch.kernels.ssd.kernel import ssd_cuda
+    from repro_torch.kernels.ssd.kernel import WGMMA_SHAPE, kernel_chunk, ssd_cuda
     from repro_torch.kernels.ssd.ops import _ssd_chunked
-    label, B, S, H, P, N, dtype, with_s0, chunk = case
+    from repro_torch.kernels.ssd.ref import bf16_ssd_limit
+    label, B, S, H, P, N, dtype, with_s0, chunk, decay = case
     tdt = getattr(torch, dtype)
     dev = "cuda"
     x = torch.randn(B, S, H, P, device=dev, generator=gen).to(tdt)
-    a = torch.sigmoid(torch.randn(B, S, H, device=dev, generator=gen)) * 0.5 + 0.5
+    if decay == "slow":
+        # a in (0.99, 1): a chunk's carry and its first rows weigh on the next.
+        a = 0.99 + 0.01 * torch.rand(B, S, H, device=dev, generator=gen)
+    else:
+        a = torch.sigmoid(torch.randn(B, S, H, device=dev, generator=gen)) * 0.5 + 0.5
     Bm = (torch.randn(B, S, N, device=dev, generator=gen) * 0.3).to(tdt)
     Cm = (torch.randn(B, S, N, device=dev, generator=gen) * 0.3).to(tdt)
     s0 = (torch.randn(B, H, P, N, device=dev, generator=gen) * 0.1
           if with_s0 else None)
 
-    y, sf = ssd_cuda(x, a, Bm, Cm, s0)
+    kernel = ("ssd_fwd_wgmma" if dtype == "bfloat16" and (P, N) == WGMMA_SHAPE
+              else "ssd_fwd")
+    y, sf = ssd_cuda(x, a, Bm, Cm, s0, chunk=chunk)
     torch.cuda.synchronize()
-    y_ref, sf_ref = _ssd_chunked(
-        x.double(), a.double(), Bm.double(), Cm.double(),
-        s0.double() if s0 is not None else None, chunk=chunk)
-    ok_y, err_y = close(torch, y, y_ref, TOL[dtype], TOL[dtype])
-    ok_s, err_s = close(torch, sf, sf_ref, TOL[dtype], TOL[dtype])
-    ms = time_ms(torch, lambda: ssd_cuda(x, a, Bm, Cm, s0))
+
+    def f64(t):
+        return None if t is None else t.double()
+
+    y_ref, sf_ref = _ssd_chunked(f64(x), f64(a), f64(Bm), f64(Cm), f64(s0), chunk=chunk)
+    if dtype == "bfloat16":
+        tol = "bf16_ssd_limit"
+        lim_y, lim_s = bf16_ssd_limit(y_ref, x, a, Bm, Cm, s0, chunk=kernel_chunk(chunk, S))
+    else:
+        tol = ROUNDED_TOL[dtype]
+        lim_y, lim_s = tol[0] + tol[1] * y_ref.abs(), tol[0] + tol[1] * sf_ref.abs()
+    median_limit = lim_y.float().median().item()
+    ok_y, err_y, ratio_y = within(torch, y, y_ref, lim_y)
+    ok_s, err_s, ratio_s = within(torch, sf, sf_ref, lim_s)
+    del lim_y, lim_s
+    typical = y_ref.abs().float().median().item()
+    ms = time_ms(torch, lambda: ssd_cuda(x, a, Bm, Cm, s0, chunk=chunk), per=KERNEL_BATCH)
+    call_ms = time_ms(torch, lambda: ssd_cuda(x, a, Bm, Cm, s0, chunk=chunk))
     plain_ms = time_ms(torch, lambda: _ssd_chunked(x, a, Bm, Cm, s0, chunk=chunk),
                        reps=21)
-    bound_ms, bound_by = ssd_bound(B, S, H, P, N, dtype, with_s0)
-    res = {"case": label, "shape": [B, S, H, P, N], "dtype": dtype,
-           "s0": with_s0, "err_y": err_y, "err_state": err_s,
-           "tol": TOL[dtype], "ok": ok_y and ok_s, "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": bound_ms, "bound_by": bound_by}
-    log("ssd_fwd check " + json.dumps(res))
+    bound_ms, bound_by = ssd_bound(B, S, H, P, N, dtype, with_s0, chunk)
+    res = {"case": label, "kernel": kernel, "shape": [B, S, H, P, N], "dtype": dtype,
+           "s0": with_s0, "chunk": chunk, "decay": decay, "err_y": err_y,
+           "err_state": err_s, "err_over_limit_y": ratio_y,
+           "err_over_limit_state": ratio_s, "median_abs_y": typical,
+           "median_limit_y": median_limit,
+           "tol": tol, "ok": ok_y and ok_s, "ms": ms, "call_ms": call_ms,
+           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+    log(f"{kernel} check " + json.dumps(res))
     return res
 
 
@@ -385,11 +437,14 @@ def profile_serve(torch, model, tokens, decode_steps: int = 8) -> None:
 def counters():
     """The launch counters, as (wrapper, attribute).  ``flash_fwd`` counts
     every flash-attention launch, of either kernel; ``flash_fwd_wgmma`` the
-    tensor-core kernel's alone."""
+    tensor-core kernel's alone; ``ssd_fwd`` and ``ssd_fwd_wgmma`` likewise
+    for SSD."""
     from repro_torch.kernels.flash_attention.kernel import flash_cuda
     from repro_torch.kernels.rglru.kernel import rglru_cuda
     from repro_torch.kernels.ssd.kernel import ssd_cuda
-    return {"ssd_fwd": (ssd_cuda, "launches"), "rglru_fwd": (rglru_cuda, "launches"),
+    return {"ssd_fwd": (ssd_cuda, "launches"),
+            "ssd_fwd_wgmma": (ssd_cuda, "wgmma_launches"),
+            "rglru_fwd": (rglru_cuda, "launches"),
             "flash_fwd": (flash_cuda, "launches"),
             "flash_fwd_wgmma": (flash_cuda, "wgmma_launches")}
 
@@ -478,7 +533,7 @@ def smoke_reference(torch, cfg, plain: dict, prompt_lens, steps: int, seed: int,
     from repro_torch.models import RuntimeConfig, build_model
     small = build_model(cfg, RuntimeConfig(compute_dtype=torch.float32, **rt_kw),
                         device="cuda", seed=seed)
-    tol = TOL["float32"]
+    tol = FP32_TOL
     gen = torch.Generator().manual_seed(seed)
     base = small.rt
     for prompt_len in prompt_lens:
@@ -542,11 +597,18 @@ def main() -> None:
                 log(f"  {name}: {line.strip()}")
     gen = torch.Generator(device="cuda").manual_seed(0)
     ssd_cases = [
-        # label, B, S, H, P, N, dtype, initial state, chunk
-        ("full-width fp32", 2, 1024, 64, 64, 128, "float32", True, 256),
-        ("full-width bf16", 2, 1024, 64, 64, 128, "bfloat16", True, 256),
-        ("serve wave 1", 4, 512, 64, 64, 128, "bfloat16", False, 256),
-        ("serve wave 2", 4, 256, 64, 64, 128, "bfloat16", False, 256),
+        # label, B, S, H, P, N, dtype, initial state, chunk, decay
+        ("full-width fp32", 2, 1024, 64, 64, 128, "float32", True, 256, "fast"),
+        ("full-width bf16", 2, 1024, 64, 64, 128, "bfloat16", True, 256, "fast"),
+        ("serve wave 1", 4, 512, 64, 64, 128, "bfloat16", False, 256, "fast"),
+        ("serve wave 2", 4, 256, 64, 64, 128, "bfloat16", False, 256, "fast"),
+        ("serve wave 1 fp32", 4, 512, 64, 64, 128, "float32", False, 256, "fast"),
+        ("ragged bf16, chunk 125", 2, 1000, 16, 64, 128, "bfloat16", True, 125, "fast"),
+        ("bf16 P 32", 2, 512, 32, 32, 128, "bfloat16", True, 256, "fast"),
+        ("serve wave 1, slow decay", 4, 512, 64, 64, 128, "bfloat16", False, 256, "slow"),
+        ("full-width bf16, slow decay", 2, 1024, 64, 64, 128, "bfloat16", True, 256,
+         "slow"),
+        ("ragged fp32, slow decay", 2, 1000, 16, 64, 128, "float32", True, 125, "slow"),
     ]
     flash_cases = [
         # label, B, Sq, Sk, Hq, Hkv, D, dtype, causal, window, softcap,
@@ -575,7 +637,9 @@ def main() -> None:
         ("ragged S", 3, 1001, 1000, "bfloat16", True),
     ]
     flash = [check_flash(torch, c, gen) for c in flash_cases]
-    checks = {"ssd_fwd": [check_ssd(torch, c, gen) for c in ssd_cases],
+    ssd = [check_ssd(torch, c, gen) for c in ssd_cases]
+    checks = {"ssd_fwd_wgmma": [c for c in ssd if c["kernel"] == "ssd_fwd_wgmma"],
+              "ssd_fwd": [c for c in ssd if c["kernel"] == "ssd_fwd"],
               "flash_fwd_wgmma": [c for c in flash if c["kernel"] == "flash_fwd_wgmma"],
               "flash_fwd": [c for c in flash if c["kernel"] == "flash_fwd"],
               "rglru_fwd": [check_rglru(torch, c, gen) for c in rglru_cases]}
@@ -597,7 +661,8 @@ def main() -> None:
         f"{time.perf_counter() - t0:.1f} s")
     prompts, launches = serve_waves(
         torch, model, 512, (512, 256),
-        {"ssd_fwd": cfg.n_layers, "rglru_fwd": 0, "flash_fwd": 0, "flash_fwd_wgmma": 0},
+        {"ssd_fwd": cfg.n_layers, "ssd_fwd_wgmma": cfg.n_layers, "rglru_fwd": 0,
+         "flash_fwd": 0, "flash_fwd_wgmma": 0},
         "mamba2", prompt_gen)
     if profiling:
         profile_serve(torch, model, torch.as_tensor(prompts[0], device="cuda"))
@@ -619,7 +684,7 @@ def main() -> None:
         f"params, built in {time.perf_counter() - t0:.1f} s")
     prompts, rg_launches = serve_waves(
         torch, model, 1024, (3072, 1024),
-        {"ssd_fwd": 0, "rglru_fwd": n_rec, "flash_fwd": n_local,
+        {"ssd_fwd": 0, "ssd_fwd_wgmma": 0, "rglru_fwd": n_rec, "flash_fwd": n_local,
          "flash_fwd_wgmma": n_local}, "recurrentgemma", prompt_gen)
     for name, n in rg_launches.items():
         launches[name] += n
@@ -638,13 +703,18 @@ def main() -> None:
     smoke_reference(torch, rg_small, {"attn_impl": "chunked", "rglru_impl": "scan"},
                     (48, 80), 8, seed=4, max_cache_len=64)
 
-    # The main path's largest call of each kernel (flash_fwd, off the main
-    # path, at the serving shape in fp32).  flash_fwd's own launches are the
-    # flash launches that did not take the tensor-core route.
-    main_case = {"ssd_fwd": "serve wave 1", "flash_fwd_wgmma": "serve wave A",
-                 "flash_fwd": "serve wave A fp32", "rglru_fwd": "serve wave A"}
+    # The main path's largest call of each kernel (flash_fwd and ssd_fwd,
+    # off the main path, at the serving shape in fp32).  flash_fwd's and
+    # ssd_fwd's own launches are those that did not take the tensor-core
+    # route.
+    main_case = {"ssd_fwd_wgmma": "serve wave 1", "ssd_fwd": "serve wave 1 fp32",
+                 "flash_fwd_wgmma": "serve wave A", "flash_fwd": "serve wave A fp32",
+                 "rglru_fwd": "serve wave A"}
     launches["flash_fwd"] -= launches["flash_fwd_wgmma"]
+    launches["ssd_fwd"] -= launches["ssd_fwd_wgmma"]
     meta = {
+        "ssd_fwd_wgmma": ("src/repro_torch/kernels/ssd/csrc/ssd_fwd_wgmma.cu",
+                          "src/repro/kernels/ssd/kernel.py:91"),
         "ssd_fwd": ("src/repro_torch/kernels/ssd/csrc/ssd_fwd.cu",
                     "src/repro/kernels/ssd/kernel.py:91"),
         "flash_fwd_wgmma": ("src/repro_torch/kernels/flash_attention/csrc/flash_fwd_wgmma.cu",
@@ -663,7 +733,8 @@ def main() -> None:
             "name": name, "route": "cuda", "source": meta[name][0],
             "replaces": meta[name][1], "launches": launches[name],
             "max_abs_err": max(errs),
-            "ms": main_path["ms"], "plain_ms": main_path["plain_ms"],
+            "ms": main_path["ms"], "call_ms": main_path["call_ms"],
+            "plain_ms": main_path["plain_ms"],
             "bound_ms": main_path["bound_ms"], "bound_by": main_path["bound_by"],
             "library_ms": main_path.get("library_ms"),
             "shape": main_path["shape"], "dtype": main_path["dtype"],

@@ -3,10 +3,11 @@
 Each ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, written to ``build/torch_ext/`` at the root
 of the checkout and loaded with :mod:`ctypes`.  The file name carries a digest
-of the source and the flags, so an edited source is never served from a stale
-library.  Nothing here runs at import time: the first call that needs a
-kernel builds it, and :func:`build` lets a caller compile every kernel at once
-(one ``nvcc`` process per source, all started together).
+of the source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header is never served from a stale library.  Nothing here runs at
+import time: the first call that needs a kernel builds it, and :func:`build`
+lets a caller compile every kernel at once (one ``nvcc`` process per source,
+all started together).
 """
 
 from __future__ import annotations
@@ -23,9 +24,11 @@ __all__ = ["SOURCES", "BUILD_DIR", "build", "load"]
 
 _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG.parents[2] / "build" / "torch_ext"
+HEADERS = _PKG / "csrc"            # shared by the sources that include them
 
 SOURCES: Dict[str, Path] = {
     "ssd_fwd": _PKG / "ssd" / "csrc" / "ssd_fwd.cu",
+    "ssd_fwd_wgmma": _PKG / "ssd" / "csrc" / "ssd_fwd_wgmma.cu",
     "flash_fwd": _PKG / "flash_attention" / "csrc" / "flash_fwd.cu",
     "flash_fwd_wgmma": _PKG / "flash_attention" / "csrc" / "flash_fwd_wgmma.cu",
     "rglru_fwd": _PKG / "rglru" / "csrc" / "rglru_fwd.cu",
@@ -52,7 +55,8 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256(SOURCES[name].read_bytes()
+    headers = b"".join(p.read_bytes() for p in sorted(HEADERS.glob("*.cuh")))
+    digest = hashlib.sha256(SOURCES[name].read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 

@@ -18,11 +18,13 @@
 // caller's chunking only by fp32 rounding.  Inputs are read in their own dtype
 // (fp32 or bf16) and all arithmetic is fp32 on CUDA cores.
 //
-// Bound.  At the serving shapes (B=4, S=512, H=64, P=64, N=128, bf16) the
-// bytes that must move (x, y, B, C, a, final state) take ~13 us at 3.35 TB/s,
-// and the chunked products are ~7.5 GFLOP, ~8 us on the bf16 tensor cores; so
-// the floor is memory.  This first version does its products in fp32 FMAs from
-// shared memory and is bound by those instead; wgmma and TMA come later.
+// Role.  ssd_fwd_wgmma.cu serves bf16 at mamba2-1.3b's (P, N) = (64, 128);
+// this kernel takes fp32 and bf16 at the other (P, N), off the serving path
+// (kernels/ssd/kernel.py routes by dtype and shape).  chip_smoke.py times it
+// at mamba2's wave-1 shape in fp32 ("serve wave 1 fp32"): there the products
+// at the caller's chunk of 256, ~5.4 GFLOP at the 67 TFLOP/s fp32 peak, bound
+// it, and its fp32 FMAs from shared memory and serial walk over the chunks
+// keep it well above that.
 //
 // Shared-memory rows of B, C and the state are padded to N + 1 floats so that
 // the 16 rows a half-warp reads at one column fall in distinct banks.

@@ -1,9 +1,10 @@
 """Public SSD op with implementation dispatch (cuda / chunked / ref).
 
-``impl="auto"`` launches the Hopper kernel for CUDA tensors and runs the
-kernel's plain version, :func:`_ssd_chunked`, for CPU tensors.  Nothing falls
-back: a CUDA tensor under ``"cuda"`` or ``"auto"`` launches the kernel or
-raises.  The kernel's launch count is ``kernel.ssd_cuda.launches``.
+``impl="auto"`` launches a Hopper kernel for CUDA tensors (``kernel.ssd_cuda``
+picks it by dtype and shape) and runs the kernels' plain version,
+:func:`_ssd_chunked`, for CPU tensors.  Nothing falls back: a CUDA tensor
+under ``"cuda"`` or ``"auto"`` launches a kernel or raises.  The launch counts
+are ``kernel.ssd_cuda.launches`` and ``.wgmma_launches``.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ def ssd(
     assert S % chunk == 0, (S, chunk)
     if impl == "cuda":
         from .kernel import ssd_cuda          # builds the kernel on first use
-        return ssd_cuda(x, a, B_mat, C_mat, initial_state)
+        return ssd_cuda(x, a, B_mat, C_mat, initial_state, chunk=chunk)
     return _ssd_chunked(x, a, B_mat, C_mat, initial_state, chunk=chunk)
 
 
