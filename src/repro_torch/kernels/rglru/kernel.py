@@ -2,8 +2,20 @@
 
 Counterpart of ``repro.kernels.rglru.kernel.rglru_pallas``: the same inputs
 and outputs, computed by a CUDA kernel compiled for ``sm_90a`` on first use
-(see ``kernels/_build.py``).  One thread walks one (batch, channel) pair
-through the sequence; the TPU kernel's chunk size has no counterpart.
+(see ``kernels/_build.py``).  The kernel is a chunk-parallel, single-pass
+scan: persistent CTAs take tiles of (batch, 128 channels, ``kernel_chunk()``
+steps) from a ticket counter, each tile scanning its steps from zero and
+then folding in the h at the end of the tile before it in its column (a
+chained look-back).  Every h is composed in the same order on every run, so
+the kernel is deterministic: the same inputs give the same bits.  Its chunk
+is its own and any S is taken; the caller's ``chunk`` (the TPU kernel's
+block of steps) only gates the reference's ``S % chunk`` assert in
+``ops.rglru``.
+
+The look-back's scratch (one 64-bit word per channel and tile, and the
+ticket counter) is kept between calls, one set per (device, stream), and
+grows when a call needs more.  Each call tags its words with a new epoch, so
+nothing is cleared between calls.
 
 ``rglru_cuda.launches`` counts the kernel's launches, so that a run can show
 that its model path went through the kernel.
@@ -12,24 +24,61 @@ that its model path went through the kernel.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from .._build import load
 
-__all__ = ["rglru_cuda"]
+__all__ = ["rglru_cuda", "kernel_chunk"]
 
 _DTYPES = (torch.float32, torch.bfloat16)
+TILE_W = 128                            # channels a tile holds
+_EPOCHS = 1 << 31                       # the C side takes a positive int
 
 
 def _lib() -> ctypes.CDLL:
     lib = load("rglru_fwd")
     fn = lib.rglru_fwd_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        lib.rglru_fwd_chunk.argtypes = []
+        lib.rglru_fwd_chunk.restype = ctypes.c_int
     return lib
+
+
+def kernel_chunk() -> int:
+    """Steps in each of the kernel's tiles (builds the kernel on first use)."""
+    return _lib().rglru_fwd_chunk()
+
+
+class _Scratch:
+    """The look-back's state for one (device, stream)."""
+
+    def __init__(self, tiles: int, device: torch.device):
+        self.tiles = tiles
+        self.words = torch.zeros((tiles, TILE_W), dtype=torch.int64, device=device)
+        self.counter = torch.zeros(1, dtype=torch.int32, device=device)
+        self.epoch = 0
+
+    def next_epoch(self) -> int:
+        self.epoch += 1
+        if self.epoch == _EPOCHS:       # words of 2^31 calls ago would match
+            self.words.zero_()
+            self.epoch = 1
+        return self.epoch
+
+
+_SCRATCH: Dict[Tuple[int, int], _Scratch] = {}
+
+
+def _scratch(device: torch.device, stream: int, tiles: int) -> _Scratch:
+    key = (device.index, stream)
+    sc = _SCRATCH.get(key)
+    if sc is None or sc.tiles < tiles:
+        sc = _SCRATCH[key] = _Scratch(tiles, device)
+    return sc
 
 
 def rglru_cuda(
@@ -70,13 +119,17 @@ def rglru_cuda(
 
     y = torch.empty_like(x)
     h = torch.empty((Bsz, W), dtype=torch.float32, device=x.device)
+    lib = _lib()
+    tiles = -(-S // lib.rglru_fwd_chunk()) * Bsz * -(-W // TILE_W)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = _lib().rglru_fwd_launch(
+        sc = _scratch(x.device, stream, tiles)
+        rc = lib.rglru_fwd_launch(
             x.data_ptr(), r.data_ptr(), i.data_ptr(), lam.data_ptr(),
             initial_h.data_ptr() if initial_h is not None else None,
-            y.data_ptr(), h.data_ptr(), Bsz, S, W,
-            int(x.dtype == torch.bfloat16), stream)
+            y.data_ptr(), h.data_ptr(), sc.words.data_ptr(), sc.counter.data_ptr(),
+            Bsz, S, W,
+            int(x.dtype == torch.bfloat16), sc.tiles, sc.next_epoch(), stream)
     if rc != 0:
         raise RuntimeError(f"rglru_fwd launch failed with CUDA error {rc}")
     rglru_cuda.launches += 1
