@@ -42,11 +42,23 @@ Phases (any failure exits non-zero before the last line is printed):
 5. reference: smoke-size models on the card in fp32, kernel path against the
    plain path: mamba2 (prefill and one decode step) and recurrentgemma with
    5 layers (two unscanned tail layers; 48- and 80-token prompts against a
-   32-token window in a 64-slot ring; prefill and 8 decode steps).
+   32-token window in a 64-slot ring; prefill and 8 decode steps);
+6. training: ``repro_torch.launch.train.main`` trains mamba2-1.3b at full
+   width and depth (AdamW, batch 8 x 128, fp32, deterministic) for 8 steps
+   with a platform checkpoint every 4, then again with ``--kill-at 4``.  The
+   restarted run's losses of steps 5-8, the records of its final checkpoint
+   (params, m, v) and its loader state must equal the uninterrupted run's bit
+   for bit; every loss must be finite and the last three's mean below the
+   first three's; every kernel launch count must read 0 across the phase
+   (training runs the plain paths, as the reference's driver does: no kernel
+   has a backward pass).  Then the loss and every gradient of smoke-size
+   mamba2 and recurrentgemma on the card against the same step on the CPU,
+   in fp32, within 3e-4.  Prints a ``{"train": ...}`` line.
 
 With ``--profile``, phases 3 and 4 also trace one prefill of their first
 measured wave and 8 decode steps under ``torch.profiler`` and print where the
-device time goes and the device's idle share (see ``profile_serve``).
+device time goes and the device's idle share (see ``profile_serve``), and
+phase 6 traces one full-width training step (see ``profile_train``).
 
 Then one JSON line describing each kernel, the nvidia-smi line again, and as
 the last line ``{"ok": true, "device": {...}}``.
@@ -55,7 +67,10 @@ the last line ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import gc
+import hashlib
 import json
+import math
+import os
 import statistics
 import subprocess
 import sys
@@ -389,6 +404,26 @@ def wave_inputs(torch, tokens):
                 segments=torch.ones((B, S), dtype=torch.int32, device=tokens.device))
 
 
+def profile_table(torch, prof, window_us: float, top: int = 10):
+    """(device-busy ms, idle share, launches, top kernels) of a profiled
+    window: the CUDA kernels' durations summed by name (one stream, so they
+    do not overlap)."""
+    from torch.autograd import DeviceType
+    by_kernel = {}
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            n, us = by_kernel.get(evt.name, (0, 0.0))
+            by_kernel[evt.name] = (n + 1, us + evt.time_range.elapsed_us())
+    if not by_kernel:
+        fail("the profiler recorded no CUDA kernel in the window")
+    busy_us = sum(us for _, us in by_kernel.values())
+    ranked = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:top]
+    return (busy_us / 1e3, 1 - busy_us / window_us,
+            sum(n for n, _ in by_kernel.values()),
+            [{"name": name[:80], "launches": n, "ms": us / 1e3}
+             for name, (n, us) in ranked])
+
+
 def profile_serve(torch, model, tokens, decode_steps: int = 8) -> None:
     """Where one wave's time goes: a profiled prefill and decode window.
 
@@ -398,7 +433,6 @@ def profile_serve(torch, model, tokens, decode_steps: int = 8) -> None:
     The full per-operator tables go to
     ``chiprun_out/profile_<model>_<phase>.txt``.
     """
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     out_dir = Path(__file__).resolve().parent / "chiprun_out"
@@ -423,24 +457,14 @@ def profile_serve(torch, model, tokens, decode_steps: int = 8) -> None:
             fn()
             torch.cuda.synchronize()
             window_us = (time.perf_counter() - t0) * 1e6
-        by_kernel = {}
-        for evt in prof.events():
-            if evt.device_type == DeviceType.CUDA:
-                n, us = by_kernel.get(evt.name, (0, 0.0))
-                by_kernel[evt.name] = (n + 1, us + evt.time_range.elapsed_us())
-        if not by_kernel:
-            fail(f"the profiler recorded no CUDA kernel in the {phase} window")
-        busy_us = sum(us for _, us in by_kernel.values())
-        top = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:8]
+        busy_ms, idle, launches, top = profile_table(torch, prof, window_us, top=8)
         log("profile " + json.dumps({
             "model": model.cfg.name, "phase": phase, "batch": tokens.shape[0],
             "prompt_len": tokens.shape[1],
             "decode_steps": decode_steps if phase == "decode" else 0,
-            "window_ms": window_us / 1e3, "device_busy_ms": busy_us / 1e3,
-            "device_idle_share": 1 - busy_us / window_us,
-            "kernel_launches": sum(n for n, _ in by_kernel.values()),
-            "top_kernels": [{"name": name[:80], "launches": n, "ms": us / 1e3}
-                            for name, (n, us) in top]}))
+            "window_ms": window_us / 1e3, "device_busy_ms": busy_ms,
+            "device_idle_share": idle, "kernel_launches": launches,
+            "top_kernels": top}))
         (out_dir / f"profile_{model.cfg.name}_{phase}.txt").write_text(prof.key_averages().table(
             sort_by="self_device_time_total", row_limit=40))
 
@@ -573,9 +597,217 @@ def smoke_reference(torch, cfg, plain: dict, prompt_lens, steps: int, seed: int,
     del small
 
 
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 128, 8
+# lr 3e-4: at the driver's default 3e-3 the full-width loss rises again after
+# step 4, as the warmup lifts the rate (PERF.md, PR 16).
+TRAIN_ARGS = ["--arch", "mamba2-1.3b", "--batch", str(TRAIN_BATCH),
+              "--seq-len", str(TRAIN_SEQ), "--steps", str(TRAIN_STEPS),
+              "--checkpoint-every", "4", "--log-every", "1", "--lr", "3e-4"]
+
+
+def checkpoint_records(run):
+    """(record id -> content digest of every params/opt record of a run's
+    final checkpoint, the number of parameters it holds).  The blob digests
+    are sha256 of the raw bytes."""
+    plan = run["dm"].plan_checkout("checkpoints/mamba2-1.3b", "trainer",
+                                   rev=run["checkpoint"])
+    entries = [e for e in plan.entries() if e.record_id.startswith(("params/", "opt/"))]
+    n_params = sum(math.prod(e.attrs["shape"]) for e in entries
+                   if e.record_id.startswith("params/"))
+    return {e.record_id: e.blob.digest for e in entries}, n_params
+
+
+def host_peak_rss_gib() -> float:
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20   # KiB
+
+
+def train_grads_card_vs_cpu(torch, arch: str, n_layers: int, seed: int) -> float:
+    """Loss and every parameter gradient of one smoke-size training step on
+    the card against the same step on the CPU (same weights and batch, fp32,
+    the training driver's plain paths).  Returns the largest |diff|."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.train import TRAIN_RUNTIME
+    from repro_torch.models import RuntimeConfig, build_model
+    cfg = dataclasses.replace(get_smoke_config(arch), n_layers=n_layers)
+    rt = RuntimeConfig(**TRAIN_RUNTIME)
+    cpu = build_model(cfg, rt, device="cpu", seed=seed)
+    card = build_model(cfg, rt, device="cuda", seed=seed)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(seed)
+    B, S = 4, 48
+    tokens = rng.integers(3, cfg.vocab_size, size=(B, S + 1)).astype(np.int32)
+    segments = (np.arange(S)[None, :] >= rng.integers(8, 40, size=(B, 1))).astype(np.int32)
+    segments[1, -6:] = -1                       # padding, labels masked
+    positions = np.where(segments == 0, np.arange(S),
+                         np.arange(S) - np.argmax(segments == 1, axis=1)[:, None])
+    labels = np.where(segments >= 0, tokens[:, 1:], -1)
+    batch = {"tokens": tokens[:, :S], "labels": labels.astype(np.int32),
+             "segments": segments, "positions": positions.astype(np.int32)}
+    out = []
+    for model in (cpu, card):
+        tb = {k: torch.from_numpy(v).to(model.device) for k, v in batch.items()}
+        params = dict(model.named_parameters())
+        loss, _ = model.loss(tb)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        out.append([loss.detach()] + list(grads))
+    worst = 0.0
+    for name, want, got in zip(["loss"] + list(dict(cpu.named_parameters())),
+                               out[0], out[1]):
+        got = got.cpu()
+        diff = (got - want).abs()
+        worst = max(worst, diff.max().item())
+        if not (torch.isfinite(got).all() and (diff <= FP32_TOL + FP32_TOL * want.abs()).all()):
+            fail(f"smoke {arch} training {name} on the card disagrees with the CPU "
+                 f"beyond {FP32_TOL}: max abs diff {diff.max().item()}")
+    return worst
+
+
+def profile_train(torch) -> None:
+    """Where one full-width training step's time goes: a warm step, then one
+    step under ``torch.profiler`` (the step as the driver runs it: its batch
+    from ``DeviceFeed``, loss, backward, clipping, AdamW, the loss on the
+    host).  The per-operator table goes to
+    ``chiprun_out/profile_mamba2-1.3b_train.txt``.
+
+    Then the cost of determinism: steps on the host clock with deterministic
+    algorithms on and off, in turns (on, off, on, off, 2 steps each; their
+    medians).  cuBLAS's workspace setting is fixed when CUDA starts, so this
+    measures the algorithm choices and the filling of uninitialised memory,
+    not the workspace."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.data import DeviceFeed, ShardedSnapshotLoader
+    from repro_torch.launch.train import TRAIN_RUNTIME, build_platform, deterministic
+    from repro_torch.models import RuntimeConfig, build_model
+    from repro_torch.train import TrainConfig, make_optimizer, make_train_step
+    from repro_torch.train.optimizer import OptimizerConfig
+
+    out_dir = Path(__file__).resolve().parent / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    with deterministic():
+        plat, _ = build_platform(TRAIN_SEQ, n_docs=128)
+        loader = ShardedSnapshotLoader(plat.dataset("corpus/packed").plan(), TRAIN_BATCH,
+                                       TRAIN_SEQ)
+        model = build_model(get_config("mamba2-1.3b"), RuntimeConfig(**TRAIN_RUNTIME),
+                            device="cuda", seed=0)
+        train_cfg = TrainConfig(optimizer=OptimizerConfig(lr=3e-4, warmup_steps=10,
+                                                          total_steps=TRAIN_STEPS))
+        step_fn = make_train_step(model, train_cfg)
+        params = dict(model.named_parameters())
+        opt_state = make_optimizer(train_cfg.optimizer).init(params)
+        feed = iter(DeviceFeed(loader, "cuda"))
+
+        def step():
+            nonlocal params, opt_state
+            batch, _ = next(feed)
+            params, opt_state, metrics = step_fn(params, opt_state, batch)
+            return float(metrics["loss"])
+
+        step()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step()
+            window_us = (time.perf_counter() - t0) * 1e6
+        step_ms = {True: [], False: []}
+        for mode in (True, False, True, False):
+            torch.use_deterministic_algorithms(mode)
+            for _ in range(2):
+                t0 = time.perf_counter()
+                step()
+                step_ms[mode].append((time.perf_counter() - t0) * 1e3)
+        feed.close()
+    busy_ms, idle, launches, top = profile_table(torch, prof, window_us, top=12)
+    log("profile " + json.dumps({
+        "model": "mamba2-1.3b", "phase": "train step", "batch": TRAIN_BATCH,
+        "seq_len": TRAIN_SEQ,
+        "window_ms": window_us / 1e3, "device_busy_ms": busy_ms,
+        "device_idle_share": idle, "kernel_launches": launches, "top_kernels": top,
+        "step_ms_deterministic": step_ms[True], "step_ms_not_deterministic": step_ms[False],
+        "determinism_cost": statistics.median(step_ms[True])
+        / statistics.median(step_ms[False]) - 1}))
+    (out_dir / "profile_mamba2-1.3b_train.txt").write_text(prof.key_averages().table(
+        sort_by="self_device_time_total", row_limit=50))
+
+
+def train_phase(torch, profiling: bool) -> None:
+    """Phase 6 (see the module docstring)."""
+    from repro_torch.launch.train import main as train_main
+    for fn, attr in counters().values():
+        setattr(fn, attr, 0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    full = train_main(TRAIN_ARGS)
+    full_s = time.perf_counter() - t0
+    full_records, n_params = checkpoint_records(full)
+    full_state = full["loader"].state()
+    summary = {k: full[k] for k in ("losses", "step_s", "ckpt_save_s", "loader_stats")}
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    killed = train_main(TRAIN_ARGS + ["--kill-at", "4"])
+    killed_s = time.perf_counter() - t0
+    killed_records, _ = checkpoint_records(killed)
+    killed_state = killed["loader"].state()
+    got = {name: getattr(fn, attr) for name, (fn, attr) in counters().items()}
+    peak_mem_gib = torch.cuda.max_memory_allocated() / 2**30
+    losses, step_s, ld = summary["losses"], summary["step_s"], summary["loader_stats"]
+    records_digest = hashlib.sha256(json.dumps(sorted(full_records.items())).encode()
+                                    ).hexdigest()
+    # Printed before the checks, so that a failed run still shows its numbers.
+    log("train " + json.dumps({"train": {
+        "arch": "mamba2-1.3b", "params": n_params, "batch": TRAIN_BATCH,
+        "seq_len": TRAIN_SEQ, "steps": TRAIN_STEPS, "args": TRAIN_ARGS,
+        "train_tokens_per_s": TRAIN_BATCH * TRAIN_SEQ * (len(step_s) - 1) / sum(step_s[1:]),
+        "step_ms": statistics.median(step_s[1:]) * 1e3,
+        "step_ms_each": [s * 1e3 for s in step_s],
+        "step_ms_each_killed": [s * 1e3 for s in killed["step_s"]],
+        "loader_mode": ld["mode"], "loader_wait_fraction": ld["wait_fraction"],
+        "pages_streamed": ld["pages_streamed"],
+        "peak_resident_ids": ld["peak_resident_ids"],
+        "ckpt_save_s": summary["ckpt_save_s"], "ckpt_save_s_killed": killed["ckpt_save_s"],
+        "ckpt_load_s": killed["ckpt_load_s"],
+        "peak_mem_gib": peak_mem_gib, "host_peak_rss_gib": host_peak_rss_gib(),
+        "run_s": full_s, "killed_run_s": killed_s,
+        "losses": losses, "losses_killed": killed["losses"],
+        "final_records_sha256": records_digest, "launches": got}}))
+    if any(n != 0 for n in got.values()):
+        fail(f"training launched a kernel: {got} (the training path is the plain one)")
+    if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+        fail(f"training losses are not {TRAIN_STEPS} finite values: {losses}")
+    if not statistics.mean(losses[-3:]) < statistics.mean(losses[:3]):
+        fail(f"the loss did not fall: first three {losses[:3]}, last three {losses[-3:]}")
+    if killed["losses"][4:] != losses[4:]:
+        fail(f"the restarted run's losses differ: {killed['losses'][4:]} vs {losses[4:]}")
+    if killed_records != full_records or len(full_records) < 3:
+        diff = sorted(k for k in full_records if killed_records.get(k) != full_records[k])
+        fail(f"the restarted run's final params/opt records differ: {diff[:8]}")
+    if killed_state != full_state:
+        fail(f"the restarted run's loader state differs: {killed_state} vs {full_state}")
+    del killed
+    gc.collect()
+    torch.cuda.empty_cache()
+    worst = {arch: train_grads_card_vs_cpu(torch, arch, n, seed)
+             for arch, n, seed in (("mamba2-1.3b", 2, 5), ("recurrentgemma-9b", 5, 6))}
+    log(f"smoke training step, card vs CPU (fp32, tolerance {FP32_TOL}): max abs diff "
+        + json.dumps(worst))
+    if profiling:
+        profile_train(torch)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail(f"the port's sources are missing: no {SRC / 'repro_torch'}")
+    # Phase 6 trains with deterministic algorithms, and cuBLAS reads its
+    # workspace setting when CUDA starts.
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
@@ -721,6 +953,11 @@ def main() -> None:
     rg_small = dataclasses.replace(get_smoke_config("recurrentgemma-9b"), n_layers=5)
     smoke_reference(torch, rg_small, {"attn_impl": "chunked", "rglru_impl": "scan"},
                     (48, 80), 8, seed=4, max_cache_len=64)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 6. train mamba2-1.3b at full width and depth -------------------------------
+    train_phase(torch, profiling)
 
     # The main path's largest call of each kernel (flash_fwd and ssd_fwd,
     # off the main path, at the serving shape in fp32).  flash_fwd's and

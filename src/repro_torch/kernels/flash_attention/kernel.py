@@ -30,6 +30,7 @@ from typing import Optional
 
 import torch
 
+from .._autograd import refuse_grad
 from .._build import load
 
 __all__ = ["flash_cuda"]
@@ -73,6 +74,8 @@ def flash_cuda(
 ) -> torch.Tensor:
     """Returns the attention output (B, Sq, Hq, D) in q.dtype.  Launches or
     raises."""
+    refuse_grad("flash_cuda", 'flash_attention(..., impl="ref" or "chunked")',
+                q, k, v)
     if not q.is_cuda:
         raise ValueError(f"flash_cuda needs CUDA tensors, got q on {q.device}")
     if q.dim() != 4 or k.dim() != 4:

@@ -28,6 +28,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from .._autograd import refuse_grad
 from .._build import load
 
 __all__ = ["rglru_cuda", "kernel_chunk"]
@@ -89,6 +90,7 @@ def rglru_cuda(
     initial_h: Optional[torch.Tensor] = None,   # (B, W)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (y in x.dtype, final h in fp32).  Launches or raises."""
+    refuse_grad("rglru_cuda", 'rglru(..., impl="scan")', x, r, i, lam, initial_h)
     if not x.is_cuda:
         raise ValueError(f"rglru_cuda needs CUDA tensors, got x on {x.device}")
     if x.dim() != 3:

@@ -32,6 +32,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from .._autograd import refuse_grad
 from .._build import load
 
 __all__ = ["ssd_cuda"]
@@ -75,6 +76,8 @@ def ssd_cuda(
     chunk: int = 256,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (y in x.dtype, final state in fp32).  Launches or raises."""
+    refuse_grad("ssd_cuda", 'ssd(..., impl="chunked")', x, a, B_mat, C_mat,
+                initial_state)
     if not x.is_cuda:
         raise ValueError(f"ssd_cuda needs CUDA tensors, got x on {x.device}")
     Bsz, S, H, P = x.shape

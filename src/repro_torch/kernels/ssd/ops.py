@@ -75,8 +75,11 @@ def _ssd_chunked(x, a, B_mat, C_mat, initial_state=None, *, chunk):
     scores = torch.einsum("bgtn,bgrn->bgtr", Cf, Bf)     # (B, nc, c, c)
     t_idx = torch.arange(chunk, device=x.device)
     causal = t_idx[:, None] >= t_idx[None, :]
-    decay = torch.exp(la[:, :, :, None, :] - la[:, :, None, :, :])  # (B,nc,c,c,H)
-    m = torch.where(causal[None, None, :, :, None], decay, 0.0)
+    # Masked before the exp (the reference masks after it, with the same
+    # forward values): off the causal triangle la_t - la_r > 0 overflows at
+    # fast decays, and the gradient through where() of an inf is NaN.
+    diff = la[:, :, :, None, :] - la[:, :, None, :, :]             # (B,nc,c,c,H)
+    m = torch.exp(torch.where(causal[None, None, :, :, None], diff, -torch.inf))
     y_intra = torch.einsum("bgtrh,bgrhp->bgthp", scores[..., None] * m, xf)
 
     # Chunk -> state contribution (independent per chunk).

@@ -1,1 +1,1 @@
-"""Drivers of the port (ported so far: ``serve``)."""
+"""Drivers of the port (ported so far: ``serve`` and ``train``)."""

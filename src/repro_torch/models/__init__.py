@@ -11,5 +11,6 @@ def build_model(cfg: ModelConfig, rt: RuntimeConfig = RuntimeConfig(), *,
                 device="cuda", seed: int = 0) -> DecoderLM:
     if cfg.is_encoder_decoder:
         raise NotImplementedError(
-            "encoder-decoder models are not ported yet: ROADMAP Queue 1 item 6")
+            "encoder-decoder models are not ported yet: the encoder-decoder "
+            "slice")
     return DecoderLM(cfg, rt, device=device, seed=seed)

@@ -30,6 +30,7 @@ class RuntimeConfig:
     attn_impl: str = "auto"              # auto | cuda | chunked | ref
     ssd_impl: str = "auto"               # auto | cuda | chunked | ref
     rglru_impl: str = "auto"             # auto | cuda | scan | ref
+    remat: str = "none"                  # none | full (training)
     attn_block_q: int = 512
     attn_block_k: int = 1024
     max_cache_len: int = 0               # serve: KV cache allocation length

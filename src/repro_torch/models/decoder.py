@@ -7,8 +7,17 @@ superblock's params on a leading repeat dim and scans over it
 in an unscanned ``tail``; here every layer, tail included, is one entry of an
 ``nn.ModuleList`` (layer ``l`` has kind ``pattern[l % len(pattern)]``) and
 the scan is a Python loop over it.  Block kinds, options and families that
-are not ported yet raise ``NotImplementedError`` naming the ROADMAP item that
-ports them.
+are not ported yet raise ``NotImplementedError`` naming the slice that ports
+them.
+
+Training: ``loss`` is the reference's masked next-token cross entropy, and
+``RuntimeConfig.remat="full"`` runs each layer under
+``torch.utils.checkpoint`` (the reference's ``_remat`` wraps each superblock
+in ``jax.checkpoint`` with nothing saveable; recomputing per layer keeps the
+same values).  Gradients come from autograd through the plain versions of the
+kernels (``ssd_impl="chunked"``, ``rglru_impl="scan"``, ``attn_impl="ref"``):
+the Hopper kernels are forward-only and their wrappers refuse inputs that
+require grad.
 
 The serving methods keep the reference's signatures minus ``params`` (the
 module holds them).  The decode cache is a list with one dict per layer:
@@ -23,6 +32,7 @@ from typing import Dict, List, Optional, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from .attention import attn_apply, attn_decode, attn_init, init_kv_cache
@@ -31,13 +41,14 @@ from .common import (Initializer, RuntimeConfig, mlp_apply, mlp_init,
 from .recurrent_block import init_rec_cache, rec_apply, rec_decode, rec_init
 from .ssm_block import init_ssm_cache, ssm_apply, ssm_decode, ssm_init
 
-__all__ = ["DecoderLM"]
+__all__ = ["DecoderLM", "xent_loss"]
 
 _PORTED = ("ssm", "rec", "local")
 _NOT_PORTED = {
-    "attn": "ROADMAP Queue 1 item 3 (attention slice: padded waves)",
-    "global": "ROADMAP Queue 1 item 3 (attention slice: padded waves)",
+    "attn": "the attention slice (padded waves)",
+    "global": "the attention slice (padded waves)",
 }
+_REMAT = ("none", "full")
 
 
 def _block_window(kind: str, cfg: ModelConfig) -> Optional[int]:
@@ -75,20 +86,25 @@ class DecoderLM(nn.Module):
                  *, device: Union[str, torch.device] = "cuda", seed: int = 0):
         super().__init__()
         if cfg.n_experts:
-            raise NotImplementedError(
-                "MoE is not ported yet: ROADMAP Queue 1 item 5")
+            raise NotImplementedError("MoE is not ported yet: the MoE slice")
         for kind in cfg.pattern:
             if kind not in _PORTED:
                 raise NotImplementedError(
                     f"block kind {kind!r} is not ported yet: "
-                    f"{_NOT_PORTED.get(kind, 'ROADMAP Queue 1')}")
+                    f"{_NOT_PORTED.get(kind, 'a later slice')}")
         if cfg.post_norms:
             raise NotImplementedError(
-                "post-sublayer norms are not ported yet: ROADMAP Queue 1 "
-                "item 3 (attention slice)")
+                "post-sublayer norms are not ported yet: the attention slice")
         if cfg.frontend:
             raise NotImplementedError(
-                "frontend embeddings are not ported yet: ROADMAP Queue 1 item 6")
+                "frontend embeddings are not ported yet: the encoder-decoder "
+                "slice (with the VLM prefix)")
+        if rt.remat == "dots":
+            raise NotImplementedError(
+                "remat='dots' (save the matmul outputs) is not ported yet: the "
+                "distribution slice")
+        if rt.remat not in _REMAT:
+            raise ValueError(f"unknown remat mode {rt.remat!r}")
         self.cfg, self.rt = cfg, rt
         self.pattern = cfg.pattern
         self.kinds = [cfg.pattern[l % len(cfg.pattern)] for l in range(cfg.n_layers)]
@@ -168,9 +184,20 @@ class DecoderLM(nn.Module):
         x = self._embed(batch["tokens"])
         positions = self._positions(x, batch.get("positions"))
         segments = batch.get("segments")
+        remat = self.rt.remat == "full" and torch.is_grad_enabled()
         for kind, p in zip(self.kinds, self.blocks):
-            x = self._apply_block(kind, p, x, positions=positions, segments=segments)
+            if remat:
+                x = checkpoint(self._apply_block, kind, p, x, positions=positions,
+                               segments=segments, use_reentrant=False)
+            else:
+                x = self._apply_block(kind, p, x, positions=positions,
+                                      segments=segments)
         return self._logits(x)
+
+    def loss(self, batch: Dict[str, torch.Tensor]):
+        """Next-token cross entropy; labels < 0 are masked.  Returns
+        (loss, {"loss", "n_tokens"})."""
+        return xent_loss(self.forward(batch), batch["labels"])
 
     # ------------------------------------------------------------------ serve
 
@@ -260,3 +287,20 @@ class DecoderLM(nn.Module):
                                      window=_block_window(kind, cfg),
                                      context_start=context_start)
         return self._mlp_sublayer(p, x_t + mix), state
+
+
+def xent_loss(logits: torch.Tensor, labels: torch.Tensor):
+    """Masked cross entropy, the mean over positions whose label is >= 0.
+
+    The reference extracts the label logit with a one-hot reduction (it
+    keeps a vocab-sharded axis sharded); on one device a gather computes the
+    same value.
+    """
+    mask = labels >= 0
+    safe = torch.clamp(labels, min=0).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    label_logit = torch.gather(logits, -1, safe[..., None])[..., 0]
+    nll = lse - label_logit
+    denom = torch.clamp(mask.sum(), min=1)
+    loss = torch.where(mask, nll, 0.0).sum() / denom
+    return loss, {"loss": loss, "n_tokens": denom}

@@ -1,4 +1,4 @@
-"""Carry the JAX package's parameters across into the port.
+"""Carry parameter trees between the JAX package's layout and the port's.
 
 ``params_from_jax`` takes the reference's parameter pytree as nested dicts of
 numpy arrays (``jax.tree.map(np.asarray, params)``) and returns a state dict
@@ -9,16 +9,24 @@ leading repeat dim under ``blocks/pos<j>``, are unstacked into layer
 Weights keep their ``(d_in, d_out)`` orientation.  bf16 arrays (numpy dtype
 named ``bfloat16``) cross through a ``uint16`` view, because
 ``torch.from_numpy`` does not take them.
+
+``params_to_jax`` is the inverse, for any state-dict-shaped tree (params,
+grads, the optimizer's m and v): it restacks layers on the leading repeat
+dim.  Its bf16 leaves come back as their raw bits (``uint16``), since numpy
+has no bf16 of its own; view them as bf16 on the JAX side
+(``arr.view(jnp.bfloat16)``).  ``jax_layout`` is the name map both
+directions and the checkpoints use.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List, Mapping, Union
 
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax", "to_torch"]
+__all__ = ["params_from_jax", "params_to_jax", "jax_layout", "to_torch",
+           "to_numpy"]
 
 
 def to_torch(arr) -> torch.Tensor:
@@ -27,6 +35,14 @@ def to_torch(arr) -> torch.Tensor:
     if arr.dtype.name == "bfloat16":
         return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
     return torch.from_numpy(arr)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a host numpy array; bf16 as its raw bits (``uint16``)."""
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).cpu().numpy().view(np.uint16)
+    return t.cpu().numpy()
 
 
 def _flatten(tree: Dict, prefix: str, out: Dict[str, torch.Tensor]) -> None:
@@ -54,3 +70,46 @@ def params_from_jax(np_tree: Dict) -> Dict[str, torch.Tensor]:
     for j in range(len(np_tree.get("tail", {}))):
         _flatten(np_tree["tail"][f"tail{j}"], f"blocks.{n_repeats * k + j}.", state)
     return state
+
+
+def jax_layout(names, period: int) -> Dict[str, Union[str, List[str]]]:
+    """Where each leaf of a port state dict lives in the reference's tree.
+
+    Maps each leaf path of the reference (``"embed"``,
+    ``"blocks/pos0/ssm/in_proj"``, ``"tail/tail1/norm1/scale"``) to the
+    state-dict name it holds or, for a leaf stacked on the repeat dim, the
+    names of its layers in repeat order.  ``period`` is the superblock's
+    length, ``len(cfg.pattern)``; the layer count is read off the names.
+    """
+    names = list(names)
+    layers = [int(n.split(".")[1]) for n in names if n.startswith("blocks.")]
+    n_repeats = (max(layers) + 1) // period if layers else 0
+    out: Dict[str, Union[str, List[str]]] = {}
+    for name in names:
+        if not name.startswith("blocks."):
+            out[name.replace(".", "/")] = name
+            continue
+        _, layer, rest = name.split(".", 2)
+        layer, rest = int(layer), rest.replace(".", "/")
+        if layer < n_repeats * period:
+            stacked = out.setdefault(f"blocks/pos{layer % period}/{rest}",
+                                     [None] * n_repeats)
+            stacked[layer // period] = name
+        else:
+            out[f"tail/tail{layer - n_repeats * period}/{rest}"] = name
+    return out
+
+
+def params_to_jax(state: Mapping[str, torch.Tensor], period: int) -> Dict:
+    """A port state dict as the reference's nested tree of numpy arrays
+    (see ``jax_layout``; bf16 as raw ``uint16`` bits)."""
+    tree: Dict = {}
+    for path, names in jax_layout(state, period).items():
+        leaf = (np.stack([to_numpy(state[n]) for n in names])
+                if isinstance(names, list) else to_numpy(state[names]))
+        *parents, key = path.split("/")
+        node = tree
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[key] = leaf
+    return tree

@@ -200,3 +200,20 @@ def test_flash_cuda_refuses_what_it_cannot_take(flash_cuda):
     with pytest.raises(ValueError, match="different devices"):
         flash_cuda(q, k.cpu(), v)
     assert flash_cuda.launches == launches
+
+
+def test_flash_cuda_refuses_inputs_that_require_grad(flash_cuda):
+    """The kernel is forward-only: under grad mode, an input that requires
+    grad is refused; under inference_mode, as serving runs, it launches."""
+    q, k, v = _qkv(5, 1, 64, 64, 4, 1, 32)
+    launches = flash_cuda.launches
+    with pytest.raises(RuntimeError, match='forward-only.*impl="ref"'):
+        flash_attention(q, k.requires_grad_(), v, block_q=64, block_k=64)
+    assert flash_cuda.launches == launches
+    with torch.inference_mode():
+        out = flash_attention(q, k, v, block_q=64, block_k=64)
+    assert flash_cuda.launches == launches + 1
+    want = flash_attention(q.double(), k.detach().double(), v.double(),
+                           impl="chunked", block_q=64, block_k=64)
+    np.testing.assert_allclose(out.double().cpu().numpy(), want.cpu().numpy(),
+                               **TOL["float32"])

@@ -166,3 +166,20 @@ def test_rglru_cuda_refuses_what_it_cannot_take(rglru_cuda):
     with pytest.raises(ValueError, match="different devices"):
         rglru_cuda(x, r, i, lam.cpu(), h0)
     assert rglru_cuda.launches == launches
+
+
+def test_rglru_cuda_refuses_inputs_that_require_grad(rglru_cuda):
+    """The kernel is forward-only: under grad mode, an input that requires
+    grad is refused; under inference_mode, as serving runs, it launches."""
+    x, r, i, lam, h0 = _inputs(11, 1, 32, 16)
+    launches = rglru_cuda.launches
+    with pytest.raises(RuntimeError, match='forward-only.*impl="scan"'):
+        rglru(x, r, i, lam.requires_grad_(), h0)
+    assert rglru_cuda.launches == launches
+    with torch.inference_mode():
+        y, h = rglru(x, r, i, lam, h0)
+    assert rglru_cuda.launches == launches + 1
+    y_want, h_want = _rglru_scan(x.double(), r.double(), i.double(),
+                                 lam.detach().double(), h0.double())
+    _close(y, y_want, "float32")
+    _close(h, h_want, "float32")

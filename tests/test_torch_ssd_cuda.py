@@ -191,3 +191,18 @@ def test_ssd_cuda_refuses_what_it_cannot_take(ssd_cuda):
     with pytest.raises(ValueError, match="a has shape"):
         ssd_cuda(xb, ab[:, :16], Bb, Cb, sb)
     assert (ssd_cuda.launches, ssd_cuda.wgmma_launches) == (launches, wg)
+
+
+def test_ssd_cuda_refuses_inputs_that_require_grad(ssd_cuda):
+    """The kernel is forward-only: under grad mode, an input that requires
+    grad is refused (a model trained through it would lose its gradients);
+    under inference_mode, as serving runs, the same call launches."""
+    x, a, Bm, Cm, s0 = _inputs(16, 1, 64, 2, 16, 16)
+    launches = ssd_cuda.launches
+    with pytest.raises(RuntimeError, match='forward-only.*impl="chunked"'):
+        ssd(x.requires_grad_(), a, Bm, Cm, s0, chunk=32)
+    assert ssd_cuda.launches == launches
+    with torch.inference_mode():
+        y, sf = ssd(x, a, Bm, Cm, s0, chunk=32)
+    assert ssd_cuda.launches == launches + 1
+    _check(y, sf, x.detach(), a, Bm, Cm, s0, chunk=32)
