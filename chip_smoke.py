@@ -19,7 +19,12 @@ Phases (any failure exits non-zero before the last line is printed):
    those inside one, from (0.99, 1)), and times
    both with CUDA events (a kernel over runs of 10 back-to-back calls, and
    one call alone as ``call_ms``; flash attention also against
-   ``scaled_dot_product_attention`` as a yardstick the port never calls).
+   ``scaled_dot_product_attention`` as a yardstick the port never calls:
+   SDPA has no softcap, so at gemma2's shapes it runs the same masks without
+   one).  The flash cases include gemma2's wave A, global and local (window
+   4096): q 4 x 4500 x 16 x 256, 8 KV heads, softcap 50, left-padded segments
+   for rows of 4500, 3100, 2049 and 700 tokens, whose pads share segment 0
+   with the keys past Sk that the kernel pads its last tile with.
    Flash attention has two kernels, chosen by dtype and head_dim:
    ``flash_fwd_wgmma`` (bf16 tensor cores, the serving path) and
    ``flash_fwd`` (fp32 and small head_dims); so has SSD, by dtype and
@@ -39,10 +44,24 @@ Phases (any failure exits non-zero before the last line is printed):
    Every count is set to 0 before each wave; after it the RG-LRU kernel
    must read 26, flash attention 12 (all 12 on ``flash_fwd_wgmma``) and
    both SSD counts 0;
+4b. serve gemma2-9b at full width and depth (42 layers: 21 local with a
+   4096-token window and 21 global, d_model 3584, GQA 16 q / 8 KV heads of
+   256, attention softcap 50 and final softcap 30, post-norms; 9.24 B
+   parameters, fp32, bf16 compute; ``max_cache_len`` 4500 + 32) the same
+   way, through padded waves: after a cold-start wave (4 x 1024, 2 tokens),
+   wave A (one wave of 4500-, 3100-, 2049- and 700-token prompts, LEFT-padded
+   to 4500: pad masking, ragged tiles, window masking and the local rings'
+   shifted write all run) and wave B (4 x 1024, no pads), 32 greedy tokens
+   each.  After each wave ``flash_fwd_wgmma`` must read 42 and every other
+   count 0;
 5. reference: smoke-size models on the card in fp32, kernel path against the
-   plain path: mamba2 (prefill and one decode step) and recurrentgemma with
+   plain path: mamba2 (prefill and one decode step), recurrentgemma with
    5 layers (two unscanned tail layers; 48- and 80-token prompts against a
-   32-token window in a 64-slot ring; prefill and 8 decode steps);
+   32-token window in a 64-slot ring; prefill and 8 decode steps), and
+   gemma2 on one padded wave (31-, 150- and 97-token prompts against a
+   32-token window in 128-slot rings; prefill and 8 decode steps), whose
+   greedy tokens and logits (within 3e-4) through ``ServeEngine`` must also
+   equal each prompt's decoded alone;
 6. training: ``repro_torch.launch.train.main`` trains mamba2-1.3b at full
    width and depth (AdamW, batch 8 x 128, fp32, deterministic) for 8 steps
    with a platform checkpoint every 4, then again with ``--kill-at 4``.  The
@@ -55,7 +74,7 @@ Phases (any failure exits non-zero before the last line is printed):
    mamba2 and recurrentgemma on the card against the same step on the CPU,
    in fp32, within 3e-4.  Prints a ``{"train": ...}`` line.
 
-With ``--profile``, phases 3 and 4 also trace one prefill of their first
+With ``--profile``, phases 3, 4 and 4b also trace one prefill of their first
 measured wave and 8 decode steps under ``torch.profiler`` and print where the
 device time goes and the device's idle share (see ``profile_serve``), and
 phase 6 traces one full-width training step (see ``profile_train``).
@@ -189,6 +208,10 @@ def flash_bound(torch, q, k, mask, dtype: str):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+# gemma2-9b's wave A: one padded wave whose longest prompt passes the local
+# layers' 4096-token window and whose shortest is mostly pads.
+GEMMA2_WAVE_A = (4500, 3100, 2049, 700)
+
 RGLRU_OPS_PER_ELEMENT = 20   # two sigmoids, exp, sqrt, clamp and the update
 
 
@@ -237,6 +260,9 @@ def check_flash(torch, case, gen):
         qs = qs.clone()
         qs[:, :5] = 9
         ks = ks.contiguous()
+    elif isinstance(seg_kind, tuple):    # a padded wave: rows LEFT-padded to Sk
+        ks = left_pad_segments(torch, seg_kind, Sk)
+        qs = ks[:, Sk - Sq:].contiguous()
     opts = dict(causal=causal, window=window, softcap=cap, q_segments=qs,
                 kv_segments=ks, q_offset=q_offset)
     plain = dict(opts, scale=None, block_q=block[0], block_k=block[1])
@@ -275,21 +301,26 @@ def check_flash(torch, case, gen):
     if qs is not None:
         mask = mask & (qs[:, :, None] == ks[:, None, :])
     bound_ms, bound_by = flash_bound(torch, q, k, mask, dtype)
-    library_ms = None
-    if label.startswith("serve wave A"):
+    library_ms = library_call = None
+    if label.startswith(("serve wave A", "gemma2 wave A")):
         # One PyTorch call for the same function: SDPA with the boolean
-        # causal, window and segment mask (no softcap on this path).
+        # causal, window and segment mask.  SDPA has no softcap: where the
+        # case has one, SDPA computes the same masks without it.
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         attn_mask = mask[:, None]
         library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=attn_mask, enable_gqa=True), reps=11)
+        library_call = ("SDPA, boolean mask, enable_gqa"
+                        + (", without softcap (SDPA has none)" if cap else ""))
+        del qt, kt, vt, attn_mask
     res = {"case": label, "kernel": kernel, "shape": [B, Sq, Sk, Hq, Hkv, D],
            "dtype": dtype, "causal": causal, "window": window, "softcap": cap,
-           "q_offset": q_offset, "segments": seg_kind, "err": err,
+           "q_offset": q_offset, "segments": seg_kind, "valid_pairs": int(mask.sum().item()),
+           "err": err,
            "err_over_limit": ratio, "median_abs_out": typical,
            "median_absv": median_absv, "tol": tol, "ok": ok, "ms": ms,
            "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-           "library_ms": library_ms}
+           "library_ms": library_ms, "library_call": library_call}
     log(f"{kernel} check " + json.dumps(res))
     return res
 
@@ -396,12 +427,27 @@ def check_ssd(torch, case, gen):
     return res
 
 
-def wave_inputs(torch, tokens):
-    """The prefill arguments the serving engine passes for a wave."""
-    B, S = tokens.shape
-    return dict(positions=torch.arange(S, dtype=torch.int32, device=tokens.device)
-                .expand(B, S),
-                segments=torch.ones((B, S), dtype=torch.int32, device=tokens.device))
+def left_pad_segments(torch, lengths, S):
+    """(B, S) int32 on the card: 0 for a row's left pads, 1 for its prompt."""
+    return (torch.arange(S, device="cuda")[None, :]
+            >= S - torch.tensor(lengths, device="cuda")[:, None]).int()
+
+
+def wave_inputs(torch, rows):
+    """A wave's prompts (a list of 1-d int arrays) as the serving engine
+    passes them: (tokens, prefill keywords, context_start), LEFT-padded to the
+    longest with the engine's default pad id 0, segment 0 for pads, positions
+    the wave's padded coordinates, and each row's first valid position for
+    decode."""
+    lens = [len(r) for r in rows]
+    B, S = len(rows), max(lens)
+    tokens = torch.zeros((B, S), dtype=torch.int64)
+    for i, r in enumerate(rows):
+        tokens[i, S - lens[i]:] = torch.as_tensor(r)
+    kw = dict(positions=torch.arange(S, dtype=torch.int32, device="cuda").expand(B, S),
+              segments=left_pad_segments(torch, lens, S))
+    context_start = torch.tensor([S - n for n in lens], dtype=torch.int32, device="cuda")
+    return tokens.cuda(), kw, context_start
 
 
 def profile_table(torch, prof, window_us: float, top: int = 10):
@@ -424,7 +470,7 @@ def profile_table(torch, prof, window_us: float, top: int = 10):
              for name, (n, us) in ranked])
 
 
-def profile_serve(torch, model, tokens, decode_steps: int = 8) -> None:
+def profile_serve(torch, model, rows, decode_steps: int = 8) -> None:
     """Where one wave's time goes: a profiled prefill and decode window.
 
     Per phase, prints the host-clock window, the device-busy time (the sum of
@@ -437,7 +483,7 @@ def profile_serve(torch, model, tokens, decode_steps: int = 8) -> None:
 
     out_dir = Path(__file__).resolve().parent / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    kw = wave_inputs(torch, tokens)
+    tokens, kw, context_start = wave_inputs(torch, rows)
     logits, cache, pos = model.prefill(tokens, **kw)    # warm the path once
     tok = logits[:, -1].argmax(-1)[:, None]
     torch.cuda.synchronize()
@@ -448,7 +494,8 @@ def profile_serve(torch, model, tokens, decode_steps: int = 8) -> None:
     def decode():
         step_cache, step_tok = cache, tok
         for i in range(decode_steps):
-            step_logits, step_cache = model.decode_step(step_cache, step_tok, pos + i)
+            step_logits, step_cache = model.decode_step(step_cache, step_tok, pos + i,
+                                                        context_start)
             step_tok = step_logits[:, -1].argmax(-1)[:, None]
 
     for phase, fn in (("prefill", prefill), ("decode", decode)):
@@ -460,7 +507,7 @@ def profile_serve(torch, model, tokens, decode_steps: int = 8) -> None:
         busy_ms, idle, launches, top = profile_table(torch, prof, window_us, top=8)
         log("profile " + json.dumps({
             "model": model.cfg.name, "phase": phase, "batch": tokens.shape[0],
-            "prompt_len": tokens.shape[1],
+            "prompt_len": tokens.shape[1], "prompt_lens": [len(r) for r in rows],
             "decode_steps": decode_steps if phase == "decode" else 0,
             "window_ms": window_us / 1e3, "device_busy_ms": busy_ms,
             "device_idle_share": idle, "kernel_launches": launches,
@@ -487,10 +534,12 @@ def counters():
 def serve_waves(torch, model, cold_len: int, wave_lens, expect: dict, tag: str,
                 prompt_gen):
     """A cold-start wave, then the measured waves through
-    ``ServeEngine(max_batch=4)``, 32 greedy tokens each.  Every launch count
-    is set to 0 just before each measured wave and must read ``expect``
-    (kernel name -> launches) just after it.  Returns (waves, prompts,
-    total launches by kernel)."""
+    ``ServeEngine(max_batch=4)``, 32 greedy tokens each.  A wave's entry in
+    ``wave_lens`` is a prompt length (4 prompts of it) or a tuple of 4
+    lengths (one padded wave).  Every launch count is set to 0 just before
+    each measured wave and must read ``expect`` (kernel name -> launches)
+    just after it.  Returns (each wave's prompts, total launches by
+    kernel)."""
     from repro_torch.serve import ServeEngine
     cfg = model.cfg
     engine = ServeEngine(model, max_batch=4)
@@ -506,8 +555,9 @@ def serve_waves(torch, model, cold_len: int, wave_lens, expect: dict, tag: str,
     waves, wave_prompts = [], []
     total = {name: 0 for name in expect}
     for prompt_len in wave_lens:
-        prompts = torch.randint(3, cfg.vocab_size, (4, prompt_len),
-                                generator=prompt_gen).numpy()
+        lens = prompt_len if isinstance(prompt_len, tuple) else (prompt_len,) * 4
+        prompts = [torch.randint(3, cfg.vocab_size, (n,), generator=prompt_gen).numpy()
+                   for n in lens]
         wave_prompts.append(prompts)
         ids = [engine.submit(p, max_new_tokens=32) for p in prompts]
         for fn, attr in counters().values():
@@ -527,7 +577,7 @@ def serve_waves(torch, model, cold_len: int, wave_lens, expect: dict, tag: str,
         waves.append(dict(stats, launches=got,
                           decode_tok_per_s=stats["decode_tokens"] / stats["decode_s"]))
     log(f"serve {tag} " + json.dumps({
-        "waves": [{k: w[k] for k in ("batch", "prompt_len", "launches",
+        "waves": [{k: w[k] for k in ("batch", "prompt_len", "prompt_lens", "launches",
                                      "decode_steps", "decode_tokens")}
                   | {"prefill_ms": w["prefill_s"] * 1e3,
                      "decode_tok_per_s": w["decode_tok_per_s"]} for w in waves],
@@ -535,16 +585,17 @@ def serve_waves(torch, model, cold_len: int, wave_lens, expect: dict, tag: str,
     return wave_prompts, total
 
 
-def full_width_logits(torch, model, prompts, plain: dict, tag: str) -> None:
-    """Prefill and one decode step: finite logits of the right shape; then the
-    kernel path against the plain path (bf16 compute, information only)."""
+def full_width_logits(torch, model, rows, plain: dict, tag: str) -> None:
+    """Prefill and one decode step of a wave: finite logits of the right
+    shape; then the kernel path against the plain path (bf16 compute,
+    information only)."""
     cfg = model.cfg
-    tokens = torch.as_tensor(prompts, device="cuda")
-    kw = wave_inputs(torch, tokens)
+    tokens, kw, context_start = wave_inputs(torch, rows)
     logits, cache, pos = model.prefill(tokens, **kw)
     if tuple(logits.shape) != (tokens.shape[0], 1, cfg.padded_vocab):
         fail(f"{tag} prefill logits have shape {tuple(logits.shape)}")
-    step_logits, _ = model.decode_step(cache, logits[:, -1].argmax(-1)[:, None], pos)
+    step_logits, _ = model.decode_step(cache, logits[:, -1].argmax(-1)[:, None], pos,
+                                       context_start)
     for name, t in (("prefill", logits[..., :cfg.vocab_size]),
                     ("decode", step_logits[..., :cfg.vocab_size])):
         if not torch.isfinite(t).all():
@@ -555,8 +606,8 @@ def full_width_logits(torch, model, prompts, plain: dict, tag: str) -> None:
     plain_logits, _, _ = model.prefill(tokens, **kw)
     model.rt = rt
     agree = (plain_logits.argmax(-1) == logits.argmax(-1)).sum().item()
-    log(f"{tag} full-width prefill logits, kernel path vs plain path (bf16 "
-        f"compute, information only): max abs diff "
+    log(f"{tag} full-width prefill logits at S = {tokens.shape[1]}, kernel path vs "
+        f"plain path (bf16 compute, information only): max abs diff "
         f"{(plain_logits - logits)[..., :cfg.vocab_size].abs().max().item()}, "
         f"greedy tokens agree {agree}/{tokens.shape[0]}")
 
@@ -572,11 +623,12 @@ def smoke_reference(torch, cfg, plain: dict, prompt_lens, steps: int, seed: int,
     gen = torch.Generator().manual_seed(seed)
     base = small.rt
     for prompt_len in prompt_lens:
-        toks = torch.randint(3, cfg.vocab_size, (2, prompt_len), generator=gen).cuda()
+        toks, kw, _ = wave_inputs(torch, torch.randint(3, cfg.vocab_size, (2, prompt_len),
+                                                       generator=gen).numpy())
         runs = []
         for rt in (base, base.with_(**plain)):
             small.rt = rt
-            logits, cache, pos = small.prefill(toks, **wave_inputs(torch, toks))
+            logits, cache, pos = small.prefill(toks, **kw)
             out = [logits]
             tok = logits[:, -1].argmax(-1)[:, None]
             for i in range(steps):
@@ -595,6 +647,145 @@ def smoke_reference(torch, cfg, plain: dict, prompt_lens, steps: int, seed: int,
                 fail(f"smoke {cfg.name} prompt {prompt_len} {name} logits "
                      f"disagree beyond {tol}")
     del small
+
+
+FLASH_CASES = [
+    # label, B, Sq, Sk, Hq, Hkv, D, dtype, causal, window, softcap,
+    # q_offset, segments, plain (block_q, block_k)
+    ("serve wave A", 4, 3072, 3072, 16, 1, 256, "bfloat16", True, 2048, None,
+     0, "ones", (512, 1024)),
+    ("serve wave A fp32", 4, 3072, 3072, 16, 1, 256, "float32", True, 2048, None,
+     0, "ones", (512, 1024)),
+    ("ragged fp32", 2, 300, 300, 8, 2, 64, "float32", True, 100, None, 0, None,
+     (300, 300)),
+    ("gqa 2, softcap 50", 2, 512, 512, 8, 4, 128, "bfloat16", True, None, 50.0,
+     0, None, (256, 256)),
+    ("non-causal", 2, 256, 256, 4, 4, 64, "float32", False, None, None, 0, None,
+     (128, 128)),
+    ("q_offset, Sq < Sk", 2, 64, 320, 4, 1, 128, "float32", True, 128, None,
+     256, None, (64, 64)),
+    ("masked rows", 2, 256, 256, 8, 1, 64, "bfloat16", True, None, None, 0,
+     "packed", (128, 128)),
+    ("head_dim 256 fp32", 1, 200, 200, 4, 1, 256, "float32", True, 64, None, 0,
+     "packed", (200, 200)),
+    # gemma2-9b's wave A: left-padded rows, a ragged Sk (4500 = 70 x 64 +
+    # 20), GQA 2 at head_dim 256, softcap 50; its global and local layers.
+    ("gemma2 wave A global", 4, 4500, 4500, 16, 8, 256, "bfloat16", True, None,
+     50.0, 0, GEMMA2_WAVE_A, (512, 1024)),
+    ("gemma2 wave A local", 4, 4500, 4500, 16, 8, 256, "bfloat16", True, 4096,
+     50.0, 0, GEMMA2_WAVE_A, (512, 1024)),
+]
+
+
+def serve_gemma2(torch, prompt_gen, profiling: bool) -> dict:
+    """Phase 4b (see the module docstring); returns its launches by kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import RuntimeConfig, build_model
+    cfg = get_config("gemma2-9b")
+    kinds = [cfg.pattern[i % len(cfg.pattern)] for i in range(cfg.n_layers)]
+    t0 = time.perf_counter()
+    model = build_model(cfg, RuntimeConfig(max_cache_len=max(GEMMA2_WAVE_A) + 32),
+                        device="cuda", seed=0)
+    torch.cuda.synchronize()
+    log(f"model {cfg.name}: {cfg.n_layers} layers ({kinds.count('local')} local, "
+        f"{kinds.count('global')} global), d_model {cfg.d_model}, "
+        f"{sum(p.numel() for p in model.parameters())} params (n_params() "
+        f"{cfg.n_params()}), built in {time.perf_counter() - t0:.1f} s")
+    prompts, launches = serve_waves(
+        torch, model, 1024, (GEMMA2_WAVE_A, 1024),
+        {"ssd_fwd": 0, "ssd_fwd_wgmma": 0, "rglru_fwd": 0, "flash_fwd": cfg.n_layers,
+         "flash_fwd_wgmma": cfg.n_layers}, "gemma2", prompt_gen)
+    if profiling:
+        profile_serve(torch, model, prompts[0])
+    full_width_logits(torch, model, prompts[0], {"attn_impl": "chunked"}, "gemma2")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def smoke_padded_wave(torch, cfg, lengths, steps: int, seed: int) -> None:
+    """A smoke-size attention model in fp32 on the card, on one padded wave
+    of prompts of ``lengths``: the kernel path against the plain path
+    (prefill and ``steps`` decode steps, logits within fp32 tolerance); then
+    the wave through ``ServeEngine`` against each prompt decoded alone:
+    greedy tokens equal, and each step's logits within fp32 tolerance (the
+    smoke gemma2 repeats one greedy token, so its tokens alone would not see
+    a pad attended)."""
+    from repro_torch.models import RuntimeConfig, build_model
+    from repro_torch.serve import ServeEngine
+    small = build_model(cfg, RuntimeConfig(compute_dtype=torch.float32,
+                                           max_cache_len=max(lengths) + steps + 16),
+                        device="cuda", seed=seed)
+    gen = torch.Generator().manual_seed(seed)
+    rows = [torch.randint(3, cfg.vocab_size, (n,), generator=gen).numpy() for n in lengths]
+    tokens, kw, context_start = wave_inputs(torch, rows)
+
+    def run(model):
+        logits, cache, pos = model.prefill(tokens, **kw)
+        out = [logits[:, -1]]
+        for i in range(steps):
+            tok = out[-1].argmax(-1)[:, None]
+            logits, cache = model.decode_step(cache, tok, pos + i, context_start)
+            out.append(logits[:, -1])
+        return out
+
+    def check(got, want, what):
+        diff = (got - want).abs()
+        if not (diff <= FP32_TOL + FP32_TOL * want.abs()).all():
+            fail(f"smoke {cfg.name} padded wave {lengths}: {what} disagree beyond "
+                 f"{FP32_TOL}: max abs diff {diff.max().item()}")
+        return diff.max().item()
+
+    base = small.rt
+    kernel = run(small)
+    small.rt = base.with_(attn_impl="chunked")
+    plain = run(small)
+    small.rt = base
+    worst = max(check(g, w, f"kernel vs plain step {i}")
+                for i, (g, w) in enumerate(zip(kernel, plain)))
+
+    class Recorded:                      # the logits the engine samples from
+        def __init__(self):
+            self.logits = []
+
+        def __getattr__(self, name):
+            return getattr(small, name)
+
+        def prefill(self, *a, **k):
+            out = small.prefill(*a, **k)
+            self.logits.append(out[0][:, -1])
+            return out
+
+        def decode_step(self, *a, **k):
+            out = small.decode_step(*a, **k)
+            self.logits.append(out[0][:, -1])
+            return out
+
+    recorded = Recorded()
+    engine = ServeEngine(recorded, max_batch=len(rows))
+    ids = [engine.submit(r, max_new_tokens=steps) for r in rows]
+    engine.run()
+    worst_alone = 0.0
+    for row, (rid, prompt) in enumerate(zip(ids, rows)):
+        toks, _, _ = wave_inputs(torch, [prompt])
+        logits, cache, pos = small.prefill(toks)
+        alone = []
+        for i in range(steps):
+            worst_alone = max(worst_alone, check(recorded.logits[i][row], logits[0, -1],
+                                                 f"row {row} step {i} logits vs alone"))
+            alone.append(int(logits[0, -1].argmax()))
+            if i + 1 < steps:
+                logits, cache = small.decode_step(cache, logits[:, -1].argmax(-1)[:, None],
+                                                  pos + i)
+        if engine.result(rid).output != alone:
+            fail(f"smoke {cfg.name} padded wave row {row}: greedy tokens "
+                 f"{engine.result(rid).output} differ from its prompt decoded alone {alone}")
+    log(f"smoke {cfg.name} ({cfg.n_layers} layers) padded wave {list(lengths)}: kernel vs "
+        f"plain max abs diff {worst} over prefill and {steps} decode steps; through "
+        f"ServeEngine, greedy tokens equal each prompt's decoded alone, logits max abs "
+        f"diff {worst_alone}")
+    del small, recorded, engine
 
 
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 128, 8
@@ -854,26 +1045,6 @@ def main() -> None:
          "slow"),
         ("ragged fp32, slow decay", 2, 1000, 16, 64, 128, "float32", True, 125, "slow"),
     ]
-    flash_cases = [
-        # label, B, Sq, Sk, Hq, Hkv, D, dtype, causal, window, softcap,
-        # q_offset, segments, plain (block_q, block_k)
-        ("serve wave A", 4, 3072, 3072, 16, 1, 256, "bfloat16", True, 2048, None,
-         0, "ones", (512, 1024)),
-        ("serve wave A fp32", 4, 3072, 3072, 16, 1, 256, "float32", True, 2048, None,
-         0, "ones", (512, 1024)),
-        ("ragged fp32", 2, 300, 300, 8, 2, 64, "float32", True, 100, None, 0, None,
-         (300, 300)),
-        ("gqa 2, softcap 50", 2, 512, 512, 8, 4, 128, "bfloat16", True, None, 50.0,
-         0, None, (256, 256)),
-        ("non-causal", 2, 256, 256, 4, 4, 64, "float32", False, None, None, 0, None,
-         (128, 128)),
-        ("q_offset, Sq < Sk", 2, 64, 320, 4, 1, 128, "float32", True, 128, None,
-         256, None, (64, 64)),
-        ("masked rows", 2, 256, 256, 8, 1, 64, "bfloat16", True, None, None, 0,
-         "packed", (128, 128)),
-        ("head_dim 256 fp32", 1, 200, 200, 4, 1, 256, "float32", True, 64, None, 0,
-         "packed", (200, 200)),
-    ]
     T = kernel_chunk()
     rglru_cases = [
         # label, B, S, W, dtype, initial h, decay
@@ -887,7 +1058,7 @@ def main() -> None:
         ("S = chunk - 1, h0, slow decay", 2, T - 1, 1000, "bfloat16", True, "slow"),
         ("S = chunk + 1, h0, slow decay", 2, T + 1, 1000, "float32", True, "slow"),
     ]
-    flash = [check_flash(torch, c, gen) for c in flash_cases]
+    flash = [check_flash(torch, c, gen) for c in FLASH_CASES]
     ssd = [check_ssd(torch, c, gen) for c in ssd_cases]
     checks = {"ssd_fwd_wgmma": [c for c in ssd if c["kernel"] == "ssd_fwd_wgmma"],
               "ssd_fwd": [c for c in ssd if c["kernel"] == "ssd_fwd"],
@@ -916,7 +1087,7 @@ def main() -> None:
          "flash_fwd": 0, "flash_fwd_wgmma": 0},
         "mamba2", prompt_gen)
     if profiling:
-        profile_serve(torch, model, torch.as_tensor(prompts[0], device="cuda"))
+        profile_serve(torch, model, prompts[0])
     full_width_logits(torch, model, prompts[-1], {"ssd_impl": "chunked"}, "mamba2")
     del model
     gc.collect()
@@ -940,12 +1111,16 @@ def main() -> None:
     for name, n in rg_launches.items():
         launches[name] += n
     if profiling:
-        profile_serve(torch, model, torch.as_tensor(prompts[0], device="cuda"))
+        profile_serve(torch, model, prompts[0])
     full_width_logits(torch, model, prompts[0],
                       {"attn_impl": "chunked", "rglru_impl": "scan"}, "recurrentgemma")
     del model
     gc.collect()
     torch.cuda.empty_cache()
+
+    # 4b. serve gemma2-9b at full width and depth, through padded waves ---------
+    for name, n in serve_gemma2(torch, prompt_gen, profiling).items():
+        launches[name] += n
 
     # 5. reference: smoke-size models, kernel path vs plain path in fp32 ---------
     smoke_reference(torch, get_smoke_config("mamba2-1.3b"), {"ssd_impl": "chunked"},
@@ -953,6 +1128,7 @@ def main() -> None:
     rg_small = dataclasses.replace(get_smoke_config("recurrentgemma-9b"), n_layers=5)
     smoke_reference(torch, rg_small, {"attn_impl": "chunked", "rglru_impl": "scan"},
                     (48, 80), 8, seed=4, max_cache_len=64)
+    smoke_padded_wave(torch, get_smoke_config("gemma2-9b"), (31, 150, 97), 8, seed=5)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -964,8 +1140,8 @@ def main() -> None:
     # ssd_fwd's own launches are those that did not take the tensor-core
     # route.
     main_case = {"ssd_fwd_wgmma": "serve wave 1", "ssd_fwd": "serve wave 1 fp32",
-                 "flash_fwd_wgmma": "serve wave A", "flash_fwd": "serve wave A fp32",
-                 "rglru_fwd": "serve wave A"}
+                 "flash_fwd_wgmma": "gemma2 wave A global",
+                 "flash_fwd": "serve wave A fp32", "rglru_fwd": "serve wave A"}
     launches["flash_fwd"] -= launches["flash_fwd_wgmma"]
     launches["ssd_fwd"] -= launches["ssd_fwd_wgmma"]
     meta = {
@@ -993,6 +1169,7 @@ def main() -> None:
             "plain_ms": main_path["plain_ms"],
             "bound_ms": main_path["bound_ms"], "bound_by": main_path["bound_by"],
             "library_ms": main_path.get("library_ms"),
+            "library_call": main_path.get("library_call"),
             "shape": main_path["shape"], "dtype": main_path["dtype"],
             "checks": {c["case"]: c["ok"] for c in results},
         })

@@ -15,8 +15,8 @@ bf16 head_dim 16/32        tiles, 64 keys, 32 at head_dim 256)
 
 The route is not a fallback: each shape has one kernel, and a failure to
 build or launch raises.  The kernels tile by their own sizes, so the
-caller's block sizes only decide the reference's divisibility asserts in
-``ops.py``.  Ragged Sq and Sk are masked inside both kernels.
+caller's block sizes are those of the plain version alone.  Ragged Sq and Sk
+are masked inside both kernels.
 
 ``flash_cuda.launches`` counts every launch of either kernel, so that a run
 can show that its model path went through one;

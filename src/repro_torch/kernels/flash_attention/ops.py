@@ -5,6 +5,11 @@ kernel's plain version, :func:`_flash_chunked`, for CPU tensors.  Nothing
 falls back: a CUDA tensor under ``"cuda"`` or ``"auto"`` launches the kernel
 or raises.  ``"ref"`` is :func:`attention_reference`, which materialises the
 scores.  The kernel's launch count is ``kernel.flash_cuda.launches``.
+
+Any Sq and Sk are taken, as the serving engine's padded waves need: the
+kernels tile by their own sizes and mask ragged tiles, and the plain version
+masks its short last q and kv blocks by position.  (The reference's
+``_flash_xla`` and Pallas route assert that the blocks divide Sq and Sk.)
 """
 
 from __future__ import annotations
@@ -43,13 +48,10 @@ def flash_attention(
         return attention_reference(q, k, v, **common)
     if impl not in ("cuda", "chunked"):
         raise ValueError(f"unknown impl {impl!r}")
-    Sq, Sk = q.shape[1], k.shape[1]
-    bq, bk = min(block_q, Sq), min(block_k, Sk)
-    assert Sq % bq == 0 and Sk % bk == 0, (Sq, bq, Sk, bk)
     if impl == "cuda":
         from .kernel import flash_cuda        # builds the kernel on first use
         return flash_cuda(q, k, v, **common)
-    return _flash_chunked(q, k, v, block_q=bq, block_k=bk, **common)
+    return _flash_chunked(q, k, v, block_q=block_q, block_k=block_k, **common)
 
 
 def _flash_chunked(
@@ -59,16 +61,17 @@ def _flash_chunked(
     """Chunked online-softmax attention in plain torch: port of
     ``repro.kernels.flash_attention.ops._flash_xla`` and the plain version of
     the CUDA kernel.  A loop over q blocks and, inside, over kv blocks; the
-    transient scores are (B, Hq, bq, bk), never (Sq, Sk).  Computes in fp32,
-    or fp64 when q is fp64."""
+    transient scores are (B, Hq, bq, bk), never (Sq, Sk).  The last q and
+    kv blocks may be short (Sq or Sk not a multiple of the block): they are
+    sliced to the rows and keys that exist.  Computes in fp32, or fp64 when q
+    is fp64."""
     B, Sq, Hq, D = q.shape
     _, Sk, Hkv, _ = k.shape
     group = Hq // Hkv
     if scale is None:
         scale = 1.0 / (D ** 0.5)
     bq, bk = min(block_q, Sq), min(block_k, Sk)
-    assert Sq % bq == 0 and Sk % bk == 0
-    n_q, n_k = Sq // bq, Sk // bk
+    n_q, n_k = -(-Sq // bq), -(-Sk // bk)
     use_segments = q_segments is not None
 
     if n_q == 1 and n_k == 1:
@@ -82,27 +85,29 @@ def _flash_chunked(
     kf, vf = k.to(cdt), v.to(cdt)
     outs = []
     for qi in range(n_q):
-        qf = q[:, qi * bq:(qi + 1) * bq].to(cdt) * scale   # (B, bq, Hq, D)
-        q_pos = q_offset + qi * bq + torch.arange(bq, device=q.device)
-        m = torch.full((B, Hq, bq), NEG_INF, dtype=cdt, device=q.device)
-        l = torch.zeros((B, Hq, bq), dtype=cdt, device=q.device)
-        acc = torch.zeros((B, Hq, bq, D), dtype=cdt, device=q.device)
+        qs = slice(qi * bq, min((qi + 1) * bq, Sq))
+        rows = qs.stop - qs.start
+        qf = q[:, qs].to(cdt) * scale                       # (B, rows, Hq, D)
+        q_pos = q_offset + qs.start + torch.arange(rows, device=q.device)
+        m = torch.full((B, Hq, rows), NEG_INF, dtype=cdt, device=q.device)
+        l = torch.zeros((B, Hq, rows), dtype=cdt, device=q.device)
+        acc = torch.zeros((B, Hq, rows, D), dtype=cdt, device=q.device)
         for ki in range(n_k):
-            ks = slice(ki * bk, (ki + 1) * bk)
-            k_rep = kf[:, ks].repeat_interleave(group, dim=2)   # (B, bk, Hq, D)
+            ks = slice(ki * bk, min((ki + 1) * bk, Sk))
+            k_rep = kf[:, ks].repeat_interleave(group, dim=2)   # (B, keys, Hq, D)
             v_rep = vf[:, ks].repeat_interleave(group, dim=2)
             s = torch.einsum("bqhd,bkhd->bhqk", qf, k_rep)
             if softcap is not None:
                 s = softcap * torch.tanh(s / softcap)
-            k_pos = ki * bk + torch.arange(bk, device=q.device)
-            mask = torch.ones((bq, bk), dtype=torch.bool, device=q.device)
+            k_pos = torch.arange(ks.start, ks.stop, device=q.device)
+            mask = torch.ones((rows, len(k_pos)), dtype=torch.bool, device=q.device)
             if causal:
                 mask &= q_pos[:, None] >= k_pos[None, :]
             if window is not None:
                 mask &= (q_pos[:, None] - k_pos[None, :]) < window
             mask = mask[None, None]
             if use_segments:
-                mask = mask & (q_segments[:, None, qi * bq:(qi + 1) * bq, None]
+                mask = mask & (q_segments[:, None, qs, None]
                                == kv_segments[:, None, None, ks])
             s = torch.where(mask, s, NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1))

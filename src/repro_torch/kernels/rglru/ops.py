@@ -29,10 +29,12 @@ def rglru(
     lam: torch.Tensor,                   # (W,)
     initial_h: Optional[torch.Tensor] = None,
     *,
-    chunk: int = 256,
     impl: str = "auto",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """RG-LRU scan.  Returns (y in x.dtype, final h in fp32)."""
+    """RG-LRU scan.  Returns (y in x.dtype, final h in fp32).  Any S is taken:
+    the CUDA kernel scans in chunks of its own (``kernel.kernel_chunk()``).
+    (The reference's ``chunk`` argument sizes its Pallas blocks, and its
+    kernel route asserts S % chunk == 0; no route here has such a block.)"""
     if impl == "auto":
         impl = "cuda" if x.is_cuda else "scan"
     if impl == "ref":
@@ -41,10 +43,6 @@ def rglru(
         return _rglru_scan(x, r, i, lam, initial_h)
     if impl != "cuda":
         raise ValueError(f"unknown impl {impl!r}")
-    S = x.shape[1]
-    # The reference's kernel route asserts this; the CUDA kernel scans in
-    # chunks of its own (kernel.kernel_chunk()) and takes any S.
-    assert S % min(chunk, S) == 0, (S, chunk)
     from .kernel import rglru_cuda          # builds the kernel on first use
     return rglru_cuda(x, r, i, lam, initial_h)
 

@@ -1,15 +1,24 @@
 """Batched serving driver: build a model, prefill a batch of prompts, decode.
 
-Port of ``repro.launch.serve``.  Runs on the CUDA card unless ``--device cpu``
-is given; prefill's SSD and RG-LRU scans and local attention then launch the
+Port of ``repro.launch.serve``, for every decoder-only family the port
+builds (mamba2, recurrentgemma, and the attention-only stablelm, qwen2.5,
+gemma2, gemma3 and internvl2, whose frontend stub is left out as
+``repro.launch.serve`` leaves it).  Runs on the CUDA card unless ``--device cpu``
+is given; prefill's SSD and RG-LRU scans and attention then launch the
 hand-written Hopper kernels.  The KV cache holds ``prompt_len + gen``
-positions (a window-sized ring for local attention), as the reference sets
+positions (a window-sized ring for windowed layers), as the reference sets
 ``max_cache_len``.
+
+The compute dtype defaults to float32, as in ``repro.launch.serve``: on the
+card that routes attention and SSD to their fp32 kernels (``flash_fwd``,
+``ssd_fwd``), not the tensor-core ones the serving path takes under
+``--dtype bfloat16``.  So before its timings this command prints how many
+times each kernel route launched, which names the kernels a time measured.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \
         --smoke --batch 4 --prompt-len 32 --gen 16
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b \
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \
         --smoke --device cpu
 """
 
@@ -21,6 +30,7 @@ import time
 import torch
 
 from ..configs import get_config, get_smoke_config
+from ..kernels import launch_counts
 from ..models import RuntimeConfig, build_model
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -55,6 +65,7 @@ def main(argv=None) -> dict:
     prompts = torch.randint(3, cfg.vocab_size, (B, args.prompt_len),
                             generator=gen, device=device)
 
+    before = launch_counts()
     t0 = time.perf_counter()
     logits, cache, pos = model.prefill(prompts)
     _sync(device)
@@ -76,13 +87,15 @@ def main(argv=None) -> dict:
 
     toks = torch.cat(generated, dim=1).cpu().numpy()
     tput = B * args.gen / max(decode_s, 1e-9)
+    launches = {name: n - before[name] for name, n in launch_counts().items()}
     print(f"arch={cfg.name} device={device} batch={B} "
-          f"prompt={args.prompt_len} gen={args.gen}")
+          f"prompt={args.prompt_len} gen={args.gen} dtype={args.dtype}")
+    print("kernel launches: " + " ".join(f"{k}={v}" for k, v in launches.items()))
     print(f"prefill: {prefill_s*1e3:.1f} ms   decode: {decode_s*1e3:.1f} ms "
           f"({tput:.1f} tok/s incl. first-call kernel build)")
     print("sample token ids:", toks[0][:12].tolist())
     return {"tokens": toks, "prefill_s": prefill_s, "decode_s": decode_s,
-            "tok_per_s": tput}
+            "tok_per_s": tput, "launches": launches}
 
 
 if __name__ == "__main__":

@@ -118,6 +118,10 @@ def attn_decode(
     k_t = apply_rope(k_t, pos_arr, cfg.rope_theta)
     L = cache["k"].shape[1]
     ring = window is not None
+    if not ring and pos >= L:
+        # (the reference's update clamps to the last slot: a wrong cache)
+        raise ValueError(f"position {pos} is past the KV cache's {L} slots: "
+                         "raise RuntimeConfig.max_cache_len")
     slot = (pos % L) if ring else pos
     cache["k"][:, slot] = k_t[:, 0].to(cache["k"].dtype)
     cache["v"][:, slot] = v_t[:, 0].to(cache["v"].dtype)

@@ -1,14 +1,18 @@
-"""Decoder-only LM, ported for the stateful patterns: ``("ssm",)`` (mamba2)
-and ``("rec", "rec", "local")`` (recurrentgemma).
+"""Decoder-only LM for the dense, ssm, hybrid and vlm families: every block
+kind (``ssm``, ``rec``, ``local``, ``attn``, ``global``), gemma's
+post-sublayer norms and the VLM's frontend-embeds prefix.
 
 Port of ``repro.models.decoder.DecoderLM``.  The reference stacks each
 superblock's params on a leading repeat dim and scans over it
 (``_scan_or_unroll``), with the ``n_layers % len(pattern)`` remainder layers
 in an unscanned ``tail``; here every layer, tail included, is one entry of an
 ``nn.ModuleList`` (layer ``l`` has kind ``pattern[l % len(pattern)]``) and
-the scan is a Python loop over it.  Block kinds, options and families that
-are not ported yet raise ``NotImplementedError`` naming the slice that ports
-them.
+the scan is a Python loop over it.  MoE raises ``NotImplementedError``
+naming the slice that ports it.
+
+Modality frontends are stubs, as in the reference: a VLM's patch embeddings
+arrive precomputed as ``frontend_embeds`` (B, P, d_model) and occupy the
+sequence prefix; ``loss`` supervises only the text positions.
 
 Training: ``loss`` is the reference's masked next-token cross entropy, and
 ``RuntimeConfig.remat="full"`` runs each layer under
@@ -22,8 +26,13 @@ require grad.
 The serving methods keep the reference's signatures minus ``params`` (the
 module holds them).  The decode cache is a list with one dict per layer:
 ``{"ssd", "conv"}`` for ``ssm``, ``{"h", "conv"}`` for ``rec`` and
-``{"k", "v"}`` for ``local`` (a ring buffer of the window, rounded up to
-128, or of ``RuntimeConfig.max_cache_len`` when that is shorter).
+``{"k", "v"}`` for the attention kinds: for ``local`` (and ``attn`` or
+``global`` under a ``sliding_window``) a ring buffer of the window, rounded
+up to 128, or of ``RuntimeConfig.max_cache_len`` when that is shorter; for
+unwindowed ``attn`` and ``global`` layers a linear cache of
+``max_cache_len`` slots.  Left-padded serving waves pass ``segments`` (0
+for pads) to ``prefill`` and ``context_start`` to ``decode_step``, which
+keeps decode from attending the pads' K/V in either cache.
 """
 
 from __future__ import annotations
@@ -43,11 +52,6 @@ from .ssm_block import init_ssm_cache, ssm_apply, ssm_decode, ssm_init
 
 __all__ = ["DecoderLM", "xent_loss"]
 
-_PORTED = ("ssm", "rec", "local")
-_NOT_PORTED = {
-    "attn": "the attention slice (padded waves)",
-    "global": "the attention slice (padded waves)",
-}
 _REMAT = ("none", "full")
 
 
@@ -87,18 +91,6 @@ class DecoderLM(nn.Module):
         super().__init__()
         if cfg.n_experts:
             raise NotImplementedError("MoE is not ported yet: the MoE slice")
-        for kind in cfg.pattern:
-            if kind not in _PORTED:
-                raise NotImplementedError(
-                    f"block kind {kind!r} is not ported yet: "
-                    f"{_NOT_PORTED.get(kind, 'a later slice')}")
-        if cfg.post_norms:
-            raise NotImplementedError(
-                "post-sublayer norms are not ported yet: the attention slice")
-        if cfg.frontend:
-            raise NotImplementedError(
-                "frontend embeddings are not ported yet: the encoder-decoder "
-                "slice (with the VLM prefix)")
         if rt.remat == "dots":
             raise NotImplementedError(
                 "remat='dots' (save the matmul outputs) is not ported yet: the "
@@ -129,8 +121,12 @@ class DecoderLM(nn.Module):
             p["rec"] = rec_init(ini, cfg, dtype)
         else:
             p["attn"] = attn_init(ini, cfg, dtype)
+        if cfg.post_norms:
+            p["post_norm1"] = norm_init(ini, D, cfg.norm, dtype)
         p["norm2"] = norm_init(ini, D, cfg.norm, dtype)
         p["mlp"] = mlp_init(ini, D, cfg.d_ff, dtype)
+        if cfg.post_norms:
+            p["post_norm2"] = norm_init(ini, D, cfg.norm, dtype)
         return p
 
     def load_jax_params(self, np_tree: Dict) -> None:
@@ -140,10 +136,13 @@ class DecoderLM(nn.Module):
 
     # ------------------------------------------------------------------ fwd
 
-    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+    def _embed(self, tokens: torch.Tensor,
+               frontend_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
         x = self.embed[tokens].to(self.rt.compute_dtype)
         if self.cfg.scale_embed:
             x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=x.dtype)
+        if frontend_embeds is not None:
+            x = torch.cat([frontend_embeds.to(x.dtype), x], dim=1)
         return x
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
@@ -156,9 +155,17 @@ class DecoderLM(nn.Module):
             logits = torch.where(iota < cfg.vocab_size, logits, -1e30)
         return logits
 
-    def _mlp_sublayer(self, p, x: torch.Tensor) -> torch.Tensor:
-        h2 = norm_apply(p["norm2"], x, self.cfg.norm)
-        return x + mlp_apply(p["mlp"], h2, self.cfg.act)
+    def _mlp_sublayer(self, p, x: torch.Tensor, mix: torch.Tensor) -> torch.Tensor:
+        """x + mix, then the MLP sublayer; gemma's post-norms wrap both
+        sublayers' outputs."""
+        cfg = self.cfg
+        if cfg.post_norms:
+            mix = norm_apply(p["post_norm1"], mix, cfg.norm)
+        x = x + mix
+        y = mlp_apply(p["mlp"], norm_apply(p["norm2"], x, cfg.norm), cfg.act)
+        if cfg.post_norms:
+            y = norm_apply(p["post_norm2"], y, cfg.norm)
+        return x + y
 
     def _apply_block(self, kind: str, p, x, *, positions, segments):
         cfg, rt = self.cfg, self.rt
@@ -171,7 +178,7 @@ class DecoderLM(nn.Module):
             mix = attn_apply(p["attn"], h, cfg, rt, positions=positions,
                              causal=True, window=_block_window(kind, cfg),
                              segments=segments)
-        return self._mlp_sublayer(p, x + mix)
+        return self._mlp_sublayer(p, x, mix)
 
     def _positions(self, x: torch.Tensor, positions):
         if positions is None:
@@ -180,8 +187,9 @@ class DecoderLM(nn.Module):
         return positions
 
     def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """Training/eval forward -> fp32 logits (B, S, V_pad)."""
-        x = self._embed(batch["tokens"])
+        """Training/eval forward -> fp32 logits (B, S_total, V_pad), where
+        S_total counts the ``frontend_embeds`` prefix when the batch has one."""
+        x = self._embed(batch["tokens"], batch.get("frontend_embeds"))
         positions = self._positions(x, batch.get("positions"))
         segments = batch.get("segments")
         remat = self.rt.remat == "full" and torch.is_grad_enabled()
@@ -196,8 +204,10 @@ class DecoderLM(nn.Module):
 
     def loss(self, batch: Dict[str, torch.Tensor]):
         """Next-token cross entropy; labels < 0 are masked.  Returns
-        (loss, {"loss", "n_tokens"})."""
-        return xent_loss(self.forward(batch), batch["labels"])
+        (loss, {"loss", "n_tokens"}).  The frontend prefix's logits are not
+        supervised."""
+        labels = batch["labels"]
+        return xent_loss(self.forward(batch)[:, -labels.shape[1]:], labels)
 
     # ------------------------------------------------------------------ serve
 
@@ -223,14 +233,18 @@ class DecoderLM(nn.Module):
         return [self._init_block_cache(kind, batch) for kind in self.kinds]
 
     @torch.inference_mode()
-    def prefill(self, tokens: torch.Tensor, positions: Optional[torch.Tensor] = None,
+    def prefill(self, tokens: torch.Tensor,
+                frontend_embeds: Optional[torch.Tensor] = None,
+                positions: Optional[torch.Tensor] = None,
                 segments: Optional[torch.Tensor] = None):
         """Run the full prompt, return (last-position logits, cache, length).
 
-        ``positions`` default to ``arange(S)`` per row; ``segments`` (B, S)
-        mask attention across packed or padded sequences (0 = pad).
+        ``frontend_embeds`` (B, P, d_model) precede the tokens; the length
+        counts them.  ``positions`` default to ``arange(S)`` per row;
+        ``segments`` (B, S) mask attention across packed or padded sequences
+        (the serving engine marks left pads 0 and content 1).
         """
-        x = self._embed(tokens)
+        x = self._embed(tokens, frontend_embeds)
         positions = self._positions(x, positions)
         cache = self.init_cache(x.shape[0])
         filled = []
@@ -256,13 +270,14 @@ class DecoderLM(nn.Module):
                 window=_block_window(kind, cfg), segments=segments,
                 return_kv=True)
             state = _write_ring(cache, k, v)
-        return self._mlp_sublayer(p, x + mix), state
+        return self._mlp_sublayer(p, x, mix), state
 
     @torch.inference_mode()
     def decode_step(self, cache: List[Dict], token: torch.Tensor, pos: int,
                     context_start: Optional[torch.Tensor] = None):
-        """token: (B, 1) int; pos: absolute position (RoPE and the ring
-        buffers use it); ``context_start``: optional (B,) first valid slot.
+        """token: (B, 1) int; pos: absolute position (RoPE and the caches
+        use it); ``context_start``: optional (B,) first valid position of each
+        row, on the model's device (a left-padded wave's S - len(prompt)).
 
         Returns (logits (B, 1, V_pad), new cache).
         """
@@ -286,7 +301,7 @@ class DecoderLM(nn.Module):
             mix, state = attn_decode(p["attn"], h, cache, pos, cfg, rt,
                                      window=_block_window(kind, cfg),
                                      context_start=context_start)
-        return self._mlp_sublayer(p, x_t + mix), state
+        return self._mlp_sublayer(p, x_t, mix), state
 
 
 def xent_loss(logits: torch.Tensor, labels: torch.Tensor):

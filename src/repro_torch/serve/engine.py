@@ -1,16 +1,23 @@
-"""Batched serving engine: request queue -> prefill waves -> decode.
+"""Batched serving engine: request queue -> padded prefill waves -> decode.
 
 Port of ``repro.serve.engine``.  Up to ``max_batch`` queued requests form a
-wave, are prefilled together and then decoded in lock-step.  Finished
-sequences (EOS or per-request ``max_new_tokens``) are masked out; the wave
-ends when all finish.
+wave, are LEFT-padded to the wave's longest prompt with ``pad_id``, prefilled
+together (pads carry segment 0 and content segment 1, so content never
+attends a pad) and then decoded in lock-step; every decode step gets each
+row's first valid position, ``context_start``, so that it never attends the
+pads' K/V in the caches.  Finished sequences (EOS or per-request
+``max_new_tokens``) are masked out; the wave ends when all finish.
+
+Stateful families (SSM, RG-LRU) would ingest pads into their recurrence, so
+their waves hold only prompts of one length, and are never padded.
 
 Everything runs under ``torch.inference_mode()`` on the model's device.
 Greedy decoding takes ``argmax`` (the first index on ties, as JAX does);
 temperature sampling draws from the engine's own ``torch.Generator``.
-``wave_stats`` keeps, per wave, the batch, the prompt length, the time to the
-first sampled token (prefill), and the decode time, steps and the tokens
-those steps gave to requests still running.
+``wave_stats`` keeps, per wave, the batch, the padded prompt length, each
+row's prompt length, the time to the first sampled token (prefill), and the
+decode time, steps and the tokens those steps gave to requests still
+running.
 """
 
 from __future__ import annotations
@@ -42,10 +49,12 @@ class Request:
 
 
 class ServeEngine:
-    def __init__(self, model, *, max_batch: int = 8, seed: int = 0):
+    def __init__(self, model, *, max_batch: int = 8, pad_id: int = 0,
+                 seed: int = 0):
         self.model = model
         self.device = model.device
         self.max_batch = max_batch
+        self.pad_id = pad_id
         self._queue: List[Request] = []
         self._done: Dict[int, Request] = {}
         self._ids = itertools.count()
@@ -80,16 +89,17 @@ class ServeEngine:
 
     # ------------------------------------------------------------------ wave
 
-    def _take_wave(self) -> List[Request]:
-        """Up to ``max_batch`` queued prompts of the first one's length.
+    def _stateful(self) -> bool:
+        return any(k in ("ssm", "rec") for k in self.model.cfg.pattern)
 
-        Every family ported so far is stateful (SSM, or RG-LRU beside local
-        attention): its recurrence would ingest pad tokens before the
-        content, so a wave holds only equal-length prompts and is never
-        padded, as in the reference.  (The reference pads the waves of
-        attention-only families and masks the pads by segment; those
-        families are not ported yet.)
-        """
+    def _take_wave(self) -> List[Request]:
+        """The next wave: the first ``max_batch`` queued requests, whatever
+        their lengths; for stateful families, up to ``max_batch`` queued
+        prompts of the first one's length."""
+        if not self._stateful():
+            wave = self._queue[:self.max_batch]
+            self._queue = self._queue[self.max_batch:]
+            return wave
         L0 = len(self._queue[0].prompt)
         wave, rest = [], []
         for r in self._queue:
@@ -103,17 +113,24 @@ class ServeEngine:
     def _run_wave(self) -> None:
         wave = self._take_wave()
         B = len(wave)
-        S = len(wave[0].prompt)
-        tokens = np.stack([r.prompt for r in wave])
-
-        # As the reference: positions in the wave's coordinates, segment 1
-        # for content (0 would mark pads; equal-length waves have none).
+        lens = [len(r.prompt) for r in wave]
+        S = max(lens)
+        tokens = np.full((B, S), self.pad_id, np.int32)
+        segments = np.zeros((B, S), np.int32)           # 0 = pad
+        for i, r in enumerate(wave):
+            tokens[i, S - lens[i]:] = r.prompt          # LEFT padding
+            segments[i, S - lens[i]:] = 1
+        # Positions are the wave's global padded coordinates for every row:
+        # RoPE is shift-equivariant, so content starting at S - L scores as
+        # it would from 0, and decode uses the shared position S + step.
         positions = torch.arange(S, dtype=torch.int32, device=self.device)
         t0 = time.perf_counter()
         logits, cache, _ = self.model.prefill(
             torch.as_tensor(tokens, device=self.device),
             positions=positions.expand(B, S),
-            segments=torch.ones((B, S), dtype=torch.int32, device=self.device))
+            segments=torch.as_tensor(segments, device=self.device))
+        context_start = torch.as_tensor([S - n for n in lens], dtype=torch.int32,
+                                        device=self.device)
         max_new = max(r.max_new_tokens for r in wave)
         tok = self._sample(logits[:, -1, :], wave)
         host_tok = tok[:, 0].tolist()                   # waits for the device
@@ -134,7 +151,8 @@ class ServeEngine:
                     r.wave = self._waves
             if not active.any():
                 break
-            logits, cache = self.model.decode_step(cache, tok, S + step)
+            logits, cache = self.model.decode_step(cache, tok, S + step,
+                                                   context_start)
             tok = self._sample(logits[:, -1, :], wave)
             host_tok = tok[:, 0].tolist()
             n_steps += 1
@@ -144,7 +162,7 @@ class ServeEngine:
                 r.finished_at = time.time()
             self._done[r.req_id] = r
         self.wave_stats.append({
-            "batch": B, "prompt_len": S, "prefill_s": t1 - t0,
+            "batch": B, "prompt_len": S, "prompt_lens": lens, "prefill_s": t1 - t0,
             "decode_s": time.perf_counter() - t1, "decode_steps": n_steps,
             "decode_tokens": sum(len(r.output) for r in wave) - B})
         self._waves += 1

@@ -217,3 +217,56 @@ def test_flash_cuda_refuses_inputs_that_require_grad(flash_cuda):
                            impl="chunked", block_q=64, block_k=64)
     np.testing.assert_allclose(out.double().cpu().numpy(), want.cpu().numpy(),
                                **TOL["float32"])
+
+
+# ---- padded serving waves (gemma2's regime: GQA 2, head_dim 256, softcap) ----
+
+def _left_padded(lengths, S):
+    seg = torch.zeros((len(lengths), S), dtype=torch.int32)
+    for b, n in enumerate(lengths):
+        seg[b, S - n:] = 1
+    return seg, seg
+
+
+@pytest.mark.parametrize("opts", [
+    dict(causal=True),                     # a global layer
+    dict(causal=True, window=300),         # a local layer
+    # Non-causal, so that pad rows (segment 0) reach the keys past Sk, which
+    # the kernel's last tile holds with segment 0 too: only its bounds test
+    # keeps them out.
+    dict(causal=False),
+])
+def test_flash_wgmma_padded_wave_gqa_softcap(flash_cuda, opts):
+    """bf16 at head_dim 256, 4 q heads on 2 KV heads, softcap 50, rows
+    LEFT-padded as the serving engine pads them, and Sk = 1000 = 15 x 64 + 40
+    (the last KV tile is ragged)."""
+    S = 1000
+    _check(flash_cuda, 17, (3, S, S, 4, 2, 256), "bfloat16",
+           segments=_left_padded((1000, 611, 37), S), softcap=50.0, **opts)
+
+
+def test_padded_wave_launches_the_kernel_in_every_attention_layer(flash_cuda):
+    """A smoke gemma2 (2 local and 2 global layers) served on the card in one
+    padded wave: each attention layer's prefill launches flash attention once,
+    on the tensor-core route in bf16 (head_dim 64 here) and on flash_fwd in
+    fp32; every request gets its tokens."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import RuntimeConfig, build_model
+    from repro_torch.serve import ServeEngine
+    cfg = dataclasses.replace(get_smoke_config("gemma2-9b"), head_dim=64)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(3, cfg.vocab_size, size=n).astype(np.int32)
+               for n in (70, 33, 129)]
+    for dtype, wgmma in ((torch.bfloat16, cfg.n_layers), (torch.float32, 0)):
+        model = build_model(cfg, RuntimeConfig(compute_dtype=dtype, max_cache_len=160),
+                            device="cuda", seed=0)
+        engine = ServeEngine(model, max_batch=3)
+        ids = [engine.submit(p, max_new_tokens=5) for p in prompts]
+        launches, wgmma_launches = flash_cuda.launches, flash_cuda.wgmma_launches
+        engine.run()
+        assert flash_cuda.launches - launches == cfg.n_layers, dtype
+        assert flash_cuda.wgmma_launches - wgmma_launches == wgmma, dtype
+        assert engine.wave_stats[-1]["prompt_lens"] == [70, 33, 129]
+        assert all(len(engine.result(i).output) == 5 for i in ids)
