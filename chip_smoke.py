@@ -24,7 +24,10 @@ Phases (any failure exits non-zero before the last line is printed):
    one).  The flash cases include gemma2's wave A, global and local (window
    4096): q 4 x 4500 x 16 x 256, 8 KV heads, softcap 50, left-padded segments
    for rows of 4500, 3100, 2049 and 700 tokens, whose pads share segment 0
-   with the keys past Sk that the kernel pads its last tile with.
+   with the keys past Sk that the kernel pads its last tile with; mixtral's
+   wave A (48 q on 8 KV heads of 128, window 4096, the same pads), and
+   seamless's non-causal encoder (4 x 1024 x 16 x 64) and cross-attention
+   (Sq 256, Sk 1024), with SDPA on the same masks.
    Flash attention has two kernels, chosen by dtype and head_dim:
    ``flash_fwd_wgmma`` (bf16 tensor cores, the serving path) and
    ``flash_fwd`` (fp32 and small head_dims); so has SSD, by dtype and
@@ -54,6 +57,21 @@ Phases (any failure exits non-zero before the last line is printed):
    shifted write all run) and wave B (4 x 1024, no pads), 32 greedy tokens
    each.  After each wave ``flash_fwd_wgmma`` must read 42 and every other
    count 0;
+4c. serve mixtral-8x22b at full width (d_model 6144, 48 q / 8 KV heads of
+   128, a 4096-token window on every layer, 8 experts top 2 of width 16384,
+   vocab 32768) but depth 4 of 56: 10.42 B parameters, 41.7 GB in fp32
+   (full depth holds 141 B, more than one card), bf16 compute, the same
+   waves as phase 4b; after each wave ``flash_fwd_wgmma`` must read 4 and
+   every other count 0.  Then one MoE layer's time at wave A's shape, split
+   into its parts (CUDA events);
+4d. seamless-m4t-medium at full width and depth (12 encoder and 12 decoder
+   layers, d_model 1024, 16 heads of 64, layernorm, GeGLU, vocab 256206):
+   ``prefill`` of 4 x 1024 seeded frames and a 64-token decoder prompt, then
+   32 greedy ``decode_step``s (``flash_fwd_wgmma`` must read 24 after the
+   prefill: 12 non-causal encoder and 12 causal decoder layers), then one
+   ``forward`` of 4 x 1024 frames and 4 x 256 tokens (36: the 12
+   cross-attentions at Sq 256, Sk 1024 too); logits finite, of the right
+   shape, the padded vocab at -1e30;
 5. reference: smoke-size models on the card in fp32, kernel path against the
    plain path: mamba2 (prefill and one decode step), recurrentgemma with
    5 layers (two unscanned tail layers; 48- and 80-token prompts against a
@@ -61,7 +79,11 @@ Phases (any failure exits non-zero before the last line is printed):
    gemma2 on one padded wave (31-, 150- and 97-token prompts against a
    32-token window in 128-slot rings; prefill and 8 decode steps), whose
    greedy tokens and logits (within 3e-4) through ``ServeEngine`` must also
-   equal each prompt's decoded alone;
+   equal each prompt's decoded alone; mixtral on one padded wave (groups of
+   16, so tokens drop; the engine's kernel path against its plain path) and,
+   at capacity_factor = n_experts where nothing drops, against each prompt
+   decoded alone; arctic (the dense residual MLP; prefill and 8 decode
+   steps); seamless (``prefill``, 8 ``decode_step``s and ``forward``);
 6. training: ``repro_torch.launch.train.main`` trains mamba2-1.3b at full
    width and depth (AdamW, batch 8 x 128, fp32, deterministic) for 8 steps
    with a platform checkpoint every 4, then again with ``--kill-at 4``.  The
@@ -74,9 +96,10 @@ Phases (any failure exits non-zero before the last line is printed):
    mamba2 and recurrentgemma on the card against the same step on the CPU,
    in fp32, within 3e-4.  Prints a ``{"train": ...}`` line.
 
-With ``--profile``, phases 3, 4 and 4b also trace one prefill of their first
-measured wave and 8 decode steps under ``torch.profiler`` and print where the
-device time goes and the device's idle share (see ``profile_serve``), and
+With ``--profile``, phases 3, 4, 4b and 4c also trace one prefill of their
+first measured wave and 8 decode steps under ``torch.profiler`` and print
+where the device time goes and the device's idle share (see
+``profile_serve``), phase 4d its prefill, 8 decode steps and its forward, and
 phase 6 traces one full-width training step (see ``profile_train``).
 
 Then one JSON line describing each kernel, the nvidia-smi line again, and as
@@ -85,6 +108,7 @@ the last line ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import hashlib
 import json
@@ -302,7 +326,7 @@ def check_flash(torch, case, gen):
         mask = mask & (qs[:, :, None] == ks[:, None, :])
     bound_ms, bound_by = flash_bound(torch, q, k, mask, dtype)
     library_ms = library_call = None
-    if label.startswith(("serve wave A", "gemma2 wave A")):
+    if label.startswith(("serve wave A", "gemma2 wave A", "mixtral", "seamless")):
         # One PyTorch call for the same function: SDPA with the boolean
         # causal, window and segment mask.  SDPA has no softcap: where the
         # case has one, SDPA computes the same masks without it.
@@ -470,7 +494,7 @@ def profile_table(torch, prof, window_us: float, top: int = 10):
              for name, (n, us) in ranked])
 
 
-def profile_serve(torch, model, rows, decode_steps: int = 8) -> None:
+def profile_serve(torch, model, rows, decode_steps: int = 8, phases=None) -> None:
     """Where one wave's time goes: a profiled prefill and decode window.
 
     Per phase, prints the host-clock window, the device-busy time (the sum of
@@ -478,27 +502,35 @@ def profile_serve(torch, model, rows, decode_steps: int = 8) -> None:
     device's idle share of the window, and the top kernels by device time.
     The full per-operator tables go to
     ``chiprun_out/profile_<model>_<phase>.txt``.
+    ``phases``, a list of (name, function, fields to print), takes the place
+    of the wave's prefill and decode (the encoder-decoder's passes).
     """
     from torch.profiler import ProfilerActivity, profile
 
     out_dir = Path(__file__).resolve().parent / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    tokens, kw, context_start = wave_inputs(torch, rows)
-    logits, cache, pos = model.prefill(tokens, **kw)    # warm the path once
-    tok = logits[:, -1].argmax(-1)[:, None]
-    torch.cuda.synchronize()
+    if phases is None:
+        tokens, kw, context_start = wave_inputs(torch, rows)
+        logits, cache, pos = model.prefill(tokens, **kw)    # warm the path once
+        tok = logits[:, -1].argmax(-1)[:, None]
+        torch.cuda.synchronize()
 
-    def prefill():
-        model.prefill(tokens, **kw)
+        def prefill():
+            model.prefill(tokens, **kw)
 
-    def decode():
-        step_cache, step_tok = cache, tok
-        for i in range(decode_steps):
-            step_logits, step_cache = model.decode_step(step_cache, step_tok, pos + i,
-                                                        context_start)
-            step_tok = step_logits[:, -1].argmax(-1)[:, None]
+        def decode():
+            step_cache, step_tok = cache, tok
+            for i in range(decode_steps):
+                step_logits, step_cache = model.decode_step(step_cache, step_tok, pos + i,
+                                                            context_start)
+                step_tok = step_logits[:, -1].argmax(-1)[:, None]
 
-    for phase, fn in (("prefill", prefill), ("decode", decode)):
+        info = {"batch": tokens.shape[0], "prompt_len": tokens.shape[1],
+                "prompt_lens": [len(r) for r in rows]}
+        phases = [("prefill", prefill, dict(info, decode_steps=0)),
+                  ("decode", decode, dict(info, decode_steps=decode_steps))]
+
+    for phase, fn, info in phases:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             fn()
@@ -506,9 +538,7 @@ def profile_serve(torch, model, rows, decode_steps: int = 8) -> None:
             window_us = (time.perf_counter() - t0) * 1e6
         busy_ms, idle, launches, top = profile_table(torch, prof, window_us, top=8)
         log("profile " + json.dumps({
-            "model": model.cfg.name, "phase": phase, "batch": tokens.shape[0],
-            "prompt_len": tokens.shape[1], "prompt_lens": [len(r) for r in rows],
-            "decode_steps": decode_steps if phase == "decode" else 0,
+            "model": model.cfg.name, "phase": phase, **info,
             "window_ms": window_us / 1e3, "device_busy_ms": busy_ms,
             "device_idle_share": idle, "kernel_launches": launches,
             "top_kernels": top}))
@@ -551,7 +581,6 @@ def serve_waves(torch, model, cold_len: int, wave_lens, expect: dict, tag: str,
     engine.run()
     log(f"{tag} cold-start wave (4 x {cold_len} prompts, 2 tokens): prefill "
         f"{engine.wave_stats[-1]['prefill_s'] * 1e3:.1f} ms")
-    torch.cuda.reset_peak_memory_stats()
     waves, wave_prompts = [], []
     total = {name: 0 for name in expect}
     for prompt_len in wave_lens:
@@ -562,7 +591,9 @@ def serve_waves(torch, model, cold_len: int, wave_lens, expect: dict, tag: str,
         ids = [engine.submit(p, max_new_tokens=32) for p in prompts]
         for fn, attr in counters().values():
             setattr(fn, attr, 0)
+        torch.cuda.reset_peak_memory_stats()
         engine.run()
+        wave_peak = torch.cuda.max_memory_allocated() / 2**30
         got = {name: getattr(fn, attr) for name, (fn, attr) in counters().items()}
         for name, want in expect.items():
             if got[name] != want:
@@ -574,14 +605,14 @@ def serve_waves(torch, model, cold_len: int, wave_lens, expect: dict, tag: str,
             if not req.done or len(req.output) != 32:
                 fail(f"{tag} request {rid} did not finish: {len(req.output)} tokens")
         stats = engine.wave_stats[-1]
-        waves.append(dict(stats, launches=got,
+        waves.append(dict(stats, launches=got, peak_mem_gib=wave_peak,
                           decode_tok_per_s=stats["decode_tokens"] / stats["decode_s"]))
     log(f"serve {tag} " + json.dumps({
         "waves": [{k: w[k] for k in ("batch", "prompt_len", "prompt_lens", "launches",
-                                     "decode_steps", "decode_tokens")}
+                                     "decode_steps", "decode_tokens", "peak_mem_gib")}
                   | {"prefill_ms": w["prefill_s"] * 1e3,
                      "decode_tok_per_s": w["decode_tok_per_s"]} for w in waves],
-        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}))
+        "peak_mem_gib": max(w["peak_mem_gib"] for w in waves)}))
     return wave_prompts, total
 
 
@@ -674,6 +705,16 @@ FLASH_CASES = [
      50.0, 0, GEMMA2_WAVE_A, (512, 1024)),
     ("gemma2 wave A local", 4, 4500, 4500, 16, 8, 256, "bfloat16", True, 4096,
      50.0, 0, GEMMA2_WAVE_A, (512, 1024)),
+    # mixtral-8x22b's wave A: GQA 6 at head_dim 128, window 4096 on every
+    # layer, the same left-padded rows.
+    ("mixtral wave A", 4, 4500, 4500, 48, 8, 128, "bfloat16", True, 4096, None,
+     0, GEMMA2_WAVE_A, (512, 1024)),
+    # seamless-m4t-medium: the encoder's non-causal self-attention, and the
+    # forward's cross-attention (Sq != Sk), both at head_dim 64.
+    ("seamless encoder", 4, 1024, 1024, 16, 16, 64, "bfloat16", False, None, None,
+     0, None, (512, 1024)),
+    ("seamless cross", 4, 256, 1024, 16, 16, 64, "bfloat16", False, None, None,
+     0, None, (256, 1024)),
 ]
 
 
@@ -704,18 +745,276 @@ def serve_gemma2(torch, prompt_gen, profiling: bool) -> dict:
     return launches
 
 
-def smoke_padded_wave(torch, cfg, lengths, steps: int, seed: int) -> None:
+# mixtral-8x22b's depth on one card: 4 of its 56 layers hold 10.42 B
+# parameters, 41.7 GB in fp32; each layer's prefill also casts its 2.42 B
+# expert weights to bf16, a transient of about 4.8 GB.
+MIXTRAL_DEPTH = 4
+
+
+def moe_breakdown(torch, model, B: int, S: int) -> dict:
+    """Where one MoE layer's time goes at a (B, S) wave: CUDA-event medians
+    of ``moe_apply`` on layer 0's weights and of its parts at the same shapes
+    (the three fp32 -> bf16 expert weight casts, the dispatch einsum, the
+    expert einsums with the SiLU gate, the combine einsum); the rest of
+    ``moe_apply`` is the router, the one-hot dispatch and combine build and
+    the aux loss.  The times do not depend on the routing: every einsum
+    computes all (group, expert, slot) rows."""
+    import torch.nn.functional as F
+    from repro_torch.models.moe import moe_apply, moe_groups
+    cfg, rt = model.cfg, model.rt
+    cd = rt.compute_dtype
+    G, g, C = moe_groups(B * S, cfg, rt)
+    E, D, Fd = cfg.n_experts, cfg.d_model, cfg.moe_d_ff
+    with torch.inference_mode():
+        p = model.blocks[0]["moe"]
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        x = torch.randn((B, S, D), device="cuda", generator=gen).to(cd)
+        xg = x.reshape(G, g, D)
+        onehot = torch.zeros((G, g, E, C), device="cuda", dtype=cd)
+        w = {k: p[k].to(cd) for k in ("wi", "wg", "wo")}
+        xd = torch.einsum("gtec,gtd->gecd", onehot, xg)
+
+        def experts():
+            h = torch.einsum("gecd,edf->gecf", xd, w["wi"])
+            gt = torch.einsum("gecd,edf->gecf", xd, w["wg"])
+            return torch.einsum("gecf,efd->gecd", h * F.silu(gt), w["wo"])
+
+        ye = experts()
+        parts = {
+            "moe_apply": lambda: moe_apply(p, x, cfg, rt),
+            "expert weight casts": lambda: [p[k].to(cd) for k in ("wi", "wg", "wo")],
+            "dispatch einsum": lambda: torch.einsum("gtec,gtd->gecd", onehot, xg),
+            "expert einsums": experts,
+            "combine einsum": lambda: torch.einsum("gtec,gecd->gtd", onehot, ye),
+        }
+        ms = {name: time_ms(torch, fn, reps=11, warmup=2) for name, fn in parts.items()}
+        del w, xd, ye, onehot
+    whole = ms["moe_apply"]
+    ms["router, one-hots, aux (the rest)"] = whole - sum(
+        v for k, v in ms.items() if k != "moe_apply")
+    expert_flop = 2 * 3 * G * E * C * D * Fd
+    res = {"shape": [B, S], "groups": G, "group": g, "capacity": C, "ms": ms,
+           "share_of_moe_apply": {k: v / whole for k, v in ms.items() if k != "moe_apply"},
+           "expert_einsum_tflops": expert_flop / ms["expert einsums"] / 1e9,
+           "dispatched_over_routed": G * E * C / (B * S * cfg.experts_per_token)}
+    log(f"moe breakdown {cfg.name} layer 0 " + json.dumps(res))
+    return res
+
+
+def serve_mixtral(torch, prompt_gen, profiling: bool) -> dict:
+    """Phase 4c (see the module docstring); returns its launches by kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import RuntimeConfig, build_model
+    full = get_config("mixtral-8x22b")
+    cfg = dataclasses.replace(full, n_layers=MIXTRAL_DEPTH)
+    t0 = time.perf_counter()
+    model = build_model(cfg, RuntimeConfig(max_cache_len=max(GEMMA2_WAVE_A) + 32),
+                        device="cuda", seed=0)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    log(f"model {cfg.name}: depth cut to {cfg.n_layers} of {full.n_layers} layers "
+        f"(full depth: n_params() {full.n_params()}, {full.n_params() * 4 / 1e9:.1f} GB "
+        f"in fp32, more than one card holds), d_model {cfg.d_model}, {cfg.n_experts} "
+        f"experts top {cfg.experts_per_token} of width {cfg.moe_d_ff}, window "
+        f"{cfg.sliding_window}; {n} params ({n * 4 / 1e9:.2f} GB in fp32; n_params() "
+        f"{cfg.n_params()}), built in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    prompts, launches = serve_waves(
+        torch, model, 1024, (GEMMA2_WAVE_A, 1024),
+        {"ssd_fwd": 0, "ssd_fwd_wgmma": 0, "rglru_fwd": 0, "flash_fwd": cfg.n_layers,
+         "flash_fwd_wgmma": cfg.n_layers}, "mixtral", prompt_gen)
+    moe_breakdown(torch, model, len(GEMMA2_WAVE_A), max(GEMMA2_WAVE_A))
+    if profiling:
+        profile_serve(torch, model, prompts[0])
+    full_width_logits(torch, model, prompts[0], {"attn_impl": "chunked"}, "mixtral")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+SEAMLESS_BATCH, SEAMLESS_FRAMES, SEAMLESS_PROMPT, SEAMLESS_FORWARD = 4, 1024, 64, 256
+
+
+def check_encdec_logits(torch, cfg, logits, shape, tag: str) -> None:
+    if tuple(logits.shape) != shape:
+        fail(f"{tag} logits have shape {tuple(logits.shape)}, expected {shape}")
+    if not torch.isfinite(logits[..., :cfg.vocab_size]).all():
+        fail(f"{tag} logits are not finite")
+    if not (logits[..., cfg.vocab_size:] == -1e30).all():
+        fail(f"{tag} logits of the padded vocab are not -1e30")
+
+
+def serve_seamless(torch, profiling: bool) -> dict:
+    """Phase 4d (see the module docstring); returns its launches by kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import RuntimeConfig, build_model
+    cfg = get_config("seamless-m4t-medium")
+    B, steps = SEAMLESS_BATCH, 32
+    t0 = time.perf_counter()
+    model = build_model(cfg, RuntimeConfig(max_cache_len=SEAMLESS_PROMPT + steps),
+                        device="cuda", seed=0)
+    torch.cuda.synchronize()
+    log(f"model {cfg.name}: {cfg.n_encoder_layers} encoder + {cfg.n_layers} decoder "
+        f"layers, d_model {cfg.d_model}, vocab {cfg.vocab_size} (padded "
+        f"{cfg.padded_vocab}), {sum(p.numel() for p in model.parameters())} params "
+        f"(n_params() {cfg.n_params()}), built in {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    frames = torch.randn((B, SEAMLESS_FRAMES, cfg.d_model), device="cuda",
+                         generator=gen) * 0.1
+    tokens = torch.randint(3, cfg.vocab_size, (B, SEAMLESS_PROMPT), device="cuda",
+                           generator=gen)
+    fwd_batch = {"frontend_embeds": frames,
+                 "tokens": torch.randint(3, cfg.vocab_size, (B, SEAMLESS_FORWARD),
+                                         device="cuda", generator=gen)}
+
+    def zero():
+        for fn, attr in counters().values():
+            setattr(fn, attr, 0)
+
+    def expect(want_wgmma: int, what: str) -> dict:
+        got = {name: getattr(fn, attr) for name, (fn, attr) in counters().items()}
+        want = {"ssd_fwd": 0, "ssd_fwd_wgmma": 0, "rglru_fwd": 0,
+                "flash_fwd": want_wgmma, "flash_fwd_wgmma": want_wgmma}
+        if got != want:
+            fail(f"seamless {what} launched {got}, expected {want}")
+        return got
+
+    def serve(n_steps):
+        """prefill, then greedy decode steps, each waiting for its tokens on
+        the host as the serving engine does: (first logits, prefill s,
+        decode s)."""
+        t0 = time.perf_counter()
+        logits, cache, pos = model.prefill(frames, tokens)
+        first = logits
+        tok = logits[:, -1].argmax(-1)[:, None]
+        tok.tolist()
+        t1 = time.perf_counter()
+        for i in range(n_steps):
+            logits, cache = model.decode_step(cache, tok, pos + i)
+            tok = logits[:, -1].argmax(-1)[:, None]
+            tok.tolist()
+        decode_s = time.perf_counter() - t1
+        if n_steps:
+            check_encdec_logits(torch, cfg, logits, (B, 1, cfg.padded_vocab),
+                                f"seamless decode step {n_steps}")
+        return first, t1 - t0, decode_s
+
+    serve(2)                                     # cold start, and a cold forward
+    with torch.inference_mode():
+        model(fwd_batch)
+    torch.cuda.reset_peak_memory_stats()
+    zero()
+    logits, prefill_s, _ = serve(0)
+    launches = expect(2 * cfg.n_layers, "prefill")
+    check_encdec_logits(torch, cfg, logits, (B, 1, cfg.padded_vocab), "seamless prefill")
+    _, _, decode_s = serve(steps)
+    zero()
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        fwd_logits = model(fwd_batch)
+        torch.cuda.synchronize()
+        forward_s = time.perf_counter() - t0
+    fwd_launches = expect(cfg.n_encoder_layers + 2 * cfg.n_layers, "forward")
+    check_encdec_logits(torch, cfg, fwd_logits, (B, SEAMLESS_FORWARD, cfg.padded_vocab),
+                        "seamless forward")
+    log("serve seamless " + json.dumps({
+        "batch": B, "frames": SEAMLESS_FRAMES, "prompt_len": SEAMLESS_PROMPT,
+        "forward_tokens": SEAMLESS_FORWARD, "prefill_ms": prefill_s * 1e3,
+        "decode_steps": steps, "decode_tok_per_s": B * steps / decode_s,
+        "forward_ms": forward_s * 1e3, "launches_prefill": launches,
+        "launches_forward": fwd_launches,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}))
+    # the plain path for information (bf16 compute): prefill and forward
+    rt = model.rt
+    model.rt = rt.with_(attn_impl="chunked")
+    plain_logits, _, _ = model.prefill(frames, tokens)
+    with torch.inference_mode():
+        plain_fwd = model(fwd_batch)
+    model.rt = rt
+    V = cfg.vocab_size
+    log(f"seamless full-width logits, kernel path vs plain path (bf16 compute, "
+        f"information only): prefill max abs diff "
+        f"{(plain_logits - logits)[..., :V].abs().max().item()}, greedy tokens agree "
+        f"{(plain_logits.argmax(-1) == logits.argmax(-1)).sum().item()}/{B}; forward max "
+        f"abs diff {(plain_fwd - fwd_logits)[..., :V].abs().max().item()}, greedy tokens "
+        f"agree {(plain_fwd.argmax(-1) == fwd_logits.argmax(-1)).float().mean().item()}")
+    del plain_logits, plain_fwd, fwd_logits
+    if profiling:
+        info = {"batch": B, "frames": SEAMLESS_FRAMES, "prompt_len": SEAMLESS_PROMPT}
+
+        def forward():
+            with torch.inference_mode():
+                model(fwd_batch)
+
+        profile_serve(torch, model, None, phases=[
+            ("prefill", lambda: serve(0), info),
+            ("decode", lambda: serve(8),
+             dict(info, decode_steps=8, note="the window holds the prefill too")),
+            ("forward", forward, dict(info, forward_tokens=SEAMLESS_FORWARD))])
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {name: launches[name] + fwd_launches[name] for name in launches}
+
+
+def smoke_seamless(torch, steps: int, seed: int) -> None:
+    """The smoke seamless in fp32 on the card: the kernel path against the
+    plain path on ``prefill``, ``steps`` ``decode_step``s and ``forward``,
+    logits within fp32 tolerance."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import RuntimeConfig, build_model
+    cfg = get_smoke_config("seamless-m4t-medium")
+    small = build_model(cfg, RuntimeConfig(compute_dtype=torch.float32, max_cache_len=48),
+                        device="cuda", seed=seed)
+    gen = torch.Generator().manual_seed(seed)
+    frames = (torch.randn((2, 40, cfg.d_model), generator=gen) * 0.1).cuda()
+    tokens = torch.randint(3, cfg.vocab_size, (2, 24), generator=gen).cuda()
+
+    def run():
+        logits, cache, pos = small.prefill(frames, tokens[:, :12])
+        out = [logits]
+        for i in range(steps):
+            logits, cache = small.decode_step(cache, out[-1][:, -1].argmax(-1)[:, None],
+                                              pos + i)
+            out.append(logits)
+        with torch.inference_mode():
+            out.append(small({"frontend_embeds": frames, "tokens": tokens}))
+        return out
+
+    base = small.rt
+    kernel = run()
+    small.rt = base.with_(attn_impl="chunked")
+    plain = run()
+    small.rt = base
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(kernel, plain)):
+        diff = (g - w).abs()
+        worst = max(worst, diff.max().item())
+        if not (diff <= FP32_TOL + FP32_TOL * w.abs()).all():
+            fail(f"smoke {cfg.name} output {i} (prefill, {steps} decode steps, forward): "
+                 f"kernel vs plain beyond {FP32_TOL}: max abs diff {diff.max().item()}")
+    log(f"smoke {cfg.name} ({cfg.n_encoder_layers} + {cfg.n_layers} layers): kernel vs "
+        f"plain max abs diff {worst} over prefill, {steps} decode steps and forward")
+    del small
+
+
+def smoke_padded_wave(torch, cfg, lengths, steps: int, seed: int, alone: bool = True,
+                      **rt_kw) -> None:
     """A smoke-size attention model in fp32 on the card, on one padded wave
     of prompts of ``lengths``: the kernel path against the plain path
     (prefill and ``steps`` decode steps, logits within fp32 tolerance); then
     the wave through ``ServeEngine`` against each prompt decoded alone:
     greedy tokens equal, and each step's logits within fp32 tolerance (the
     smoke gemma2 repeats one greedy token, so its tokens alone would not see
-    a pad attended)."""
+    a pad attended).  With ``alone=False`` (an MoE model whose tokens drop,
+    so that a row depends on its wave), the engine's wave on the kernel path
+    is held to the same wave on the plain path instead."""
     from repro_torch.models import RuntimeConfig, build_model
     from repro_torch.serve import ServeEngine
     small = build_model(cfg, RuntimeConfig(compute_dtype=torch.float32,
-                                           max_cache_len=max(lengths) + steps + 16),
+                                           max_cache_len=max(lengths) + steps + 16,
+                                           **rt_kw),
                         device="cuda", seed=seed)
     gen = torch.Generator().manual_seed(seed)
     rows = [torch.randint(3, cfg.vocab_size, (n,), generator=gen).numpy() for n in lengths]
@@ -762,10 +1061,32 @@ def smoke_padded_wave(torch, cfg, lengths, steps: int, seed: int) -> None:
             self.logits.append(out[0][:, -1])
             return out
 
-    recorded = Recorded()
-    engine = ServeEngine(recorded, max_batch=len(rows))
-    ids = [engine.submit(r, max_new_tokens=steps) for r in rows]
-    engine.run()
+    def serve():
+        recorded = Recorded()
+        engine = ServeEngine(recorded, max_batch=len(rows))
+        ids = [engine.submit(r, max_new_tokens=steps) for r in rows]
+        engine.run()
+        return recorded, engine, ids
+
+    recorded, engine, ids = serve()
+    if not alone:
+        small.rt = base.with_(attn_impl="chunked")
+        plain_recorded, plain_engine, _ = serve()
+        small.rt = base
+        worst_engine = max(check(g, w, f"engine step {i}, kernel vs plain")
+                           for i, (g, w) in enumerate(zip(recorded.logits,
+                                                          plain_recorded.logits)))
+        got = [engine.result(i).output for i in ids]
+        want = [plain_engine.result(i).output for i in ids]
+        if got != want:
+            fail(f"smoke {cfg.name} padded wave: the engine's greedy tokens on the "
+                 f"kernel path {got} differ from the plain path's {want}")
+        log(f"smoke {cfg.name} ({cfg.n_layers} layers) padded wave {list(lengths)} "
+            f"{rt_kw}: kernel vs plain max abs diff {worst} over prefill and {steps} "
+            f"decode steps; through ServeEngine, greedy tokens equal, logits max abs "
+            f"diff {worst_engine}")
+        del small, recorded, engine, plain_recorded, plain_engine
+        return
     worst_alone = 0.0
     for row, (rid, prompt) in enumerate(zip(ids, rows)):
         toks, _, _ = wave_inputs(torch, [prompt])
@@ -1003,8 +1324,6 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
     sys.path.insert(0, str(SRC))
-    import dataclasses
-
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.kernels import _build
     from repro_torch.kernels.rglru.kernel import kernel_chunk
@@ -1122,6 +1441,14 @@ def main() -> None:
     for name, n in serve_gemma2(torch, prompt_gen, profiling).items():
         launches[name] += n
 
+    # 4c. serve mixtral-8x22b at full width, depth 4 ------------------------------
+    for name, n in serve_mixtral(torch, prompt_gen, profiling).items():
+        launches[name] += n
+
+    # 4d. seamless-m4t-medium at full width and depth ----------------------------
+    for name, n in serve_seamless(torch, profiling).items():
+        launches[name] += n
+
     # 5. reference: smoke-size models, kernel path vs plain path in fp32 ---------
     smoke_reference(torch, get_smoke_config("mamba2-1.3b"), {"ssd_impl": "chunked"},
                     (48,), 1, seed=3)
@@ -1129,6 +1456,15 @@ def main() -> None:
     smoke_reference(torch, rg_small, {"attn_impl": "chunked", "rglru_impl": "scan"},
                     (48, 80), 8, seed=4, max_cache_len=64)
     smoke_padded_wave(torch, get_smoke_config("gemma2-9b"), (31, 150, 97), 8, seed=5)
+    mixtral_small = get_smoke_config("mixtral-8x22b")
+    smoke_padded_wave(torch, mixtral_small, (31, 150, 97), 8, seed=6, alone=False,
+                      moe_group_size=16)
+    smoke_padded_wave(torch, dataclasses.replace(
+        mixtral_small, capacity_factor=float(mixtral_small.n_experts)), (31, 150, 97), 8,
+        seed=6)
+    smoke_reference(torch, get_smoke_config("arctic-480b"), {"attn_impl": "chunked"},
+                    (48,), 8, seed=7, max_cache_len=64, moe_group_size=16)
+    smoke_seamless(torch, 8, seed=8)
     gc.collect()
     torch.cuda.empty_cache()
 

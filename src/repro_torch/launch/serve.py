@@ -1,9 +1,11 @@
 """Batched serving driver: build a model, prefill a batch of prompts, decode.
 
-Port of ``repro.launch.serve``, for every decoder-only family the port
-builds (mamba2, recurrentgemma, and the attention-only stablelm, qwen2.5,
-gemma2, gemma3 and internvl2, whose frontend stub is left out as
-``repro.launch.serve`` leaves it).  Runs on the CUDA card unless ``--device cpu``
+Port of ``repro.launch.serve``, for every family the port builds (mamba2,
+recurrentgemma, the attention-only stablelm, qwen2.5, gemma2, gemma3 and
+internvl2, whose frontend stub is left out as ``repro.launch.serve`` leaves
+it, the MoE mixtral and arctic, and the encoder-decoder seamless, which, as
+in the reference, encodes (batch, prompt_len, d_model) seeded frames x 0.1
+and prefills the decoder with the first prompt token alone).  Runs on the CUDA card unless ``--device cpu``
 is given; prefill's SSD and RG-LRU scans and attention then launch the
 hand-written Hopper kernels.  The KV cache holds ``prompt_len + gen``
 positions (a window-sized ring for windowed layers), as the reference sets
@@ -19,6 +21,8 @@ Usage:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \
         --smoke --batch 4 --prompt-len 32 --gen 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \
+        --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch seamless-m4t-medium \
         --smoke --device cpu
 """
 
@@ -65,9 +69,17 @@ def main(argv=None) -> dict:
     prompts = torch.randint(3, cfg.vocab_size, (B, args.prompt_len),
                             generator=gen, device=device)
 
+    frames = None
+    if cfg.is_encoder_decoder:
+        frames = torch.randn((B, args.prompt_len, cfg.d_model), generator=gen,
+                             device=device) * 0.1
+
     before = launch_counts()
     t0 = time.perf_counter()
-    logits, cache, pos = model.prefill(prompts)
+    if frames is not None:
+        logits, cache, pos = model.prefill(frames, prompts[:, :1])
+    else:
+        logits, cache, pos = model.prefill(prompts)
     _sync(device)
     prefill_s = time.perf_counter() - t0
 

@@ -1,10 +1,11 @@
 """GQA attention module: prefill via the flash kernel, decode via a
 single-token cache read.
 
-Port of ``repro.models.attention`` for self-attention: QKV bias, RoPE,
-sliding windows, logit softcap, MQA..MHA and packed segments.
-Cross-attention (``kv_x``, ``cross_kv``) is ported with the
-encoder-decoder slice (ROADMAP Queue 1).
+Port of ``repro.models.attention``: QKV bias, RoPE, sliding windows, logit
+softcap, MQA..MHA, packed segments, and cross-attention: ``attn_apply(kv_x=)``
+takes K/V from the encoder output, with no RoPE on either side and no causal
+or segment mask (Sq and Sk may differ), and ``attn_decode(cross_kv=)``
+attends precomputed encoder K/V without touching a cache.
 
 The module's parameters are an ``nn.ModuleDict`` of ``{"w", "b"?}``
 ``nn.ParameterDict``s under the reference's names (``wq``, ``wk``, ``wv``,
@@ -15,7 +16,7 @@ holds the same tensors.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -56,24 +57,31 @@ def attn_apply(
     causal: bool = True,
     window: Optional[int] = None,
     segments: Optional[torch.Tensor] = None,
+    kv_x: Optional[torch.Tensor] = None,    # cross-attention source (B, Sk, D)
     use_rope: bool = True,
     return_kv: bool = False,
 ):
-    """Full-sequence self-attention (training / prefill)."""
+    """Full-sequence attention (training / prefill / encoder).  With
+    ``kv_x``, cross-attention: K/V from ``kv_x``, no RoPE, not causal, and
+    no segment mask (the reference passes q segments alone, which its
+    masking ignores)."""
     B, S, _ = x.shape
     Hq, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    src = x if kv_x is None else kv_x
     q = _project(params["wq"], x, Hq, dh)
-    k = _project(params["wk"], x, Hkv, dh)
-    v = _project(params["wv"], x, Hkv, dh)
-    if use_rope:
+    k = _project(params["wk"], src, Hkv, dh)
+    v = _project(params["wv"], src, Hkv, dh)
+    if use_rope and kv_x is None:
         if positions is None:
             positions = torch.arange(S, device=x.device)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    if kv_x is not None:
+        segments = None
     out = flash_attention(
-        q, k, v, causal=causal, window=window, softcap=cfg.attn_softcap,
-        q_segments=segments, kv_segments=segments, impl=rt.attn_impl,
-        block_q=rt.attn_block_q, block_k=rt.attn_block_k)
+        q, k, v, causal=causal and kv_x is None, window=window,
+        softcap=cfg.attn_softcap, q_segments=segments, kv_segments=segments,
+        impl=rt.attn_impl, block_q=rt.attn_block_q, block_k=rt.attn_block_k)
     y = out.reshape(B, S, Hq * dh) @ params["wo"]["w"].to(x.dtype)
     if return_kv:
         return y, (k, v)
@@ -98,19 +106,30 @@ def attn_decode(
     rt: RuntimeConfig,
     *,
     window: Optional[int] = None,
+    cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    cross_len: Optional[int] = None,
     context_start: Optional[torch.Tensor] = None,   # (B,) first valid slot
 ):
     """One-token decode.  Returns (y: (B, 1, D), cache).
 
-    Writes k/v at slot ``pos`` (or ``pos % L`` when the cache is a
-    window-sized ring buffer) then attends over the valid entries.  ``pos``
-    is always the *absolute* position (RoPE uses it).
+    Self-attention: writes k/v at slot ``pos`` (or ``pos % L`` when the
+    cache is a window-sized ring buffer) then attends over the valid
+    entries.  ``pos`` is always the *absolute* position (RoPE uses it).
+    Cross-attention (``cross_kv``, each (B, S_kv, Hkv, dh)): attends the
+    first ``cross_len`` (default all) precomputed encoder K/V, without RoPE
+    and without touching ``cache``.
     """
     B = x_t.shape[0]
     Hq, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    group = Hq // Hkv
-    pos = int(pos)
     q = _project(params["wq"], x_t, Hq, dh)             # (B, 1, Hq, dh)
+    if cross_kv is not None:
+        k, v = cross_kv
+        S_kv = k.shape[1]
+        valid = torch.arange(S_kv, device=x_t.device) < (
+            S_kv if cross_len is None else cross_len)
+        return _decode_attend(params, q, k, v, valid[None, :].expand(B, S_kv),
+                              cfg, x_t.dtype), cache
+    pos = int(pos)
     k_t = _project(params["wk"], x_t, Hkv, dh)
     v_t = _project(params["wv"], x_t, Hkv, dh)
     pos_arr = torch.full((B, 1), pos, dtype=torch.int32, device=x_t.device)
@@ -137,7 +156,15 @@ def attn_decode(
     valid = valid[None, :].expand(B, L)
     if context_start is not None:
         valid = valid & (abs_pos[None, :] >= context_start[:, None])
+    return _decode_attend(params, q, k, v, valid, cfg, x_t.dtype), cache
 
+
+def _decode_attend(params, q, k, v, valid, cfg: ModelConfig, dtype):
+    """One query a row against k/v (B, L, Hkv, dh), keys masked by ``valid``
+    (B, L); in fp32, then the output projection in ``dtype``."""
+    B = q.shape[0]
+    Hq, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    group = Hq // Hkv
     qf = q.float() * (dh ** -0.5)
     s = _decode_scores(qf, k.float(), B, group, Hkv, dh)   # (B, Hkv, group, L)
     if cfg.attn_softcap is not None:
@@ -146,9 +173,8 @@ def attn_decode(
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bngk,bknd->bngd", p, v.float())
     # (B, Hkv, group, dh) is already q-head order (h = n * group + g).
-    out = out.reshape(B, 1, Hq * dh).to(x_t.dtype)
-    y = out @ params["wo"]["w"].to(x_t.dtype)
-    return y, cache
+    out = out.reshape(B, 1, Hq * dh).to(dtype)
+    return out @ params["wo"]["w"].to(dtype)
 
 
 def _decode_scores(qf, kf, B, group, Hkv, dh):

@@ -33,6 +33,7 @@ class RuntimeConfig:
     remat: str = "none"                  # none | full (training)
     attn_block_q: int = 512
     attn_block_k: int = 1024
+    moe_group_size: int = 512            # MoE capacity groups (tokens)
     max_cache_len: int = 0               # serve: KV cache allocation length
 
     def with_(self, **kw) -> "RuntimeConfig":

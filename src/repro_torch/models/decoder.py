@@ -1,5 +1,6 @@
-"""Decoder-only LM for the dense, ssm, hybrid and vlm families: every block
-kind (``ssm``, ``rec``, ``local``, ``attn``, ``global``), gemma's
+"""Decoder-only LM for the dense, moe, ssm, hybrid and vlm families: every
+block kind (``ssm``, ``rec``, ``local``, ``attn``, ``global``), the MoE
+feed-forward (mixtral) with arctic's dense residual MLP beside it, gemma's
 post-sublayer norms and the VLM's frontend-embeds prefix.
 
 Port of ``repro.models.decoder.DecoderLM``.  The reference stacks each
@@ -7,8 +8,9 @@ superblock's params on a leading repeat dim and scans over it
 (``_scan_or_unroll``), with the ``n_layers % len(pattern)`` remainder layers
 in an unscanned ``tail``; here every layer, tail included, is one entry of an
 ``nn.ModuleList`` (layer ``l`` has kind ``pattern[l % len(pattern)]``) and
-the scan is a Python loop over it.  MoE raises ``NotImplementedError``
-naming the slice that ports it.
+the scan is a Python loop over it.  MoE layers run ``moe_apply``'s capacity
+dispatch in forward and prefill and the dense ``moe_decode`` in decode; their
+load-balancing loss is computed and dropped, as in the reference.
 
 Modality frontends are stubs, as in the reference: a VLM's patch embeddings
 arrive precomputed as ``frontend_embeds`` (B, P, d_model) and occupy the
@@ -47,12 +49,23 @@ from ..configs.base import ModelConfig
 from .attention import attn_apply, attn_decode, attn_init, init_kv_cache
 from .common import (Initializer, RuntimeConfig, mlp_apply, mlp_init,
                      norm_apply, norm_init, resolve_device, softcap)
+from .moe import moe_apply, moe_decode, moe_init
 from .recurrent_block import init_rec_cache, rec_apply, rec_decode, rec_init
 from .ssm_block import init_ssm_cache, ssm_apply, ssm_decode, ssm_init
 
 __all__ = ["DecoderLM", "xent_loss"]
 
 _REMAT = ("none", "full")
+
+
+def check_remat(rt: RuntimeConfig) -> None:
+    """Refuse a remat mode the port does not run."""
+    if rt.remat == "dots":
+        raise NotImplementedError(
+            "remat='dots' (save the matmul outputs) is not ported yet: the "
+            "distribution slice")
+    if rt.remat not in _REMAT:
+        raise ValueError(f"unknown remat mode {rt.remat!r}")
 
 
 def _block_window(kind: str, cfg: ModelConfig) -> Optional[int]:
@@ -89,14 +102,7 @@ class DecoderLM(nn.Module):
     def __init__(self, cfg: ModelConfig, rt: RuntimeConfig = RuntimeConfig(),
                  *, device: Union[str, torch.device] = "cuda", seed: int = 0):
         super().__init__()
-        if cfg.n_experts:
-            raise NotImplementedError("MoE is not ported yet: the MoE slice")
-        if rt.remat == "dots":
-            raise NotImplementedError(
-                "remat='dots' (save the matmul outputs) is not ported yet: the "
-                "distribution slice")
-        if rt.remat not in _REMAT:
-            raise ValueError(f"unknown remat mode {rt.remat!r}")
+        check_remat(rt)
         self.cfg, self.rt = cfg, rt
         self.pattern = cfg.pattern
         self.kinds = [cfg.pattern[l % len(cfg.pattern)] for l in range(cfg.n_layers)]
@@ -124,7 +130,10 @@ class DecoderLM(nn.Module):
         if cfg.post_norms:
             p["post_norm1"] = norm_init(ini, D, cfg.norm, dtype)
         p["norm2"] = norm_init(ini, D, cfg.norm, dtype)
-        p["mlp"] = mlp_init(ini, D, cfg.d_ff, dtype)
+        if cfg.n_experts:
+            p["moe"] = moe_init(ini, cfg, dtype)
+        if not cfg.n_experts or cfg.dense_residual:
+            p["mlp"] = mlp_init(ini, D, cfg.d_ff, dtype)
         if cfg.post_norms:
             p["post_norm2"] = norm_init(ini, D, cfg.norm, dtype)
         return p
@@ -155,14 +164,25 @@ class DecoderLM(nn.Module):
             logits = torch.where(iota < cfg.vocab_size, logits, -1e30)
         return logits
 
-    def _mlp_sublayer(self, p, x: torch.Tensor, mix: torch.Tensor) -> torch.Tensor:
-        """x + mix, then the MLP sublayer; gemma's post-norms wrap both
-        sublayers' outputs."""
+    def _mlp_sublayer(self, p, x: torch.Tensor, mix: torch.Tensor,
+                      decode: bool = False) -> torch.Tensor:
+        """x + mix, then the MLP sublayer (the MoE, plus arctic's dense
+        residual MLP, in MoE layers; dense experts in ``decode``); gemma's
+        post-norms wrap both sublayers' outputs."""
         cfg = self.cfg
         if cfg.post_norms:
             mix = norm_apply(p["post_norm1"], mix, cfg.norm)
         x = x + mix
-        y = mlp_apply(p["mlp"], norm_apply(p["norm2"], x, cfg.norm), cfg.act)
+        h = norm_apply(p["norm2"], x, cfg.norm)
+        if cfg.n_experts:
+            if decode:
+                y = moe_decode(p["moe"], h, cfg, self.rt)
+            else:
+                y, _aux = moe_apply(p["moe"], h, cfg, self.rt)
+            if cfg.dense_residual:
+                y = y + mlp_apply(p["mlp"], h, cfg.act)
+        else:
+            y = mlp_apply(p["mlp"], h, cfg.act)
         if cfg.post_norms:
             y = norm_apply(p["post_norm2"], y, cfg.norm)
         return x + y
@@ -301,7 +321,7 @@ class DecoderLM(nn.Module):
             mix, state = attn_decode(p["attn"], h, cache, pos, cfg, rt,
                                      window=_block_window(kind, cfg),
                                      context_start=context_start)
-        return self._mlp_sublayer(p, x_t, mix), state
+        return self._mlp_sublayer(p, x_t, mix, decode=True), state
 
 
 def xent_loss(logits: torch.Tensor, labels: torch.Tensor):

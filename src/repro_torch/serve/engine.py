@@ -9,7 +9,13 @@ pads' K/V in the caches.  Finished sequences (EOS or per-request
 ``max_new_tokens``) are masked out; the wave ends when all finish.
 
 Stateful families (SSM, RG-LRU) would ingest pads into their recurrence, so
-their waves hold only prompts of one length, and are never padded.
+their waves hold only prompts of one length, and are never padded.  MoE
+families are attention-only and take padded waves; under capacity drops a
+row's prefill depends on the other rows of its wave (the reference's
+``moe_apply`` groups tokens across rows), as in the reference's engine.  An
+encoder-decoder cannot be served here: its prefill needs encoder frames,
+which a request does not carry (nor does one of the reference's engine), so
+the engine refuses it when it is built.
 
 Everything runs under ``torch.inference_mode()`` on the model's device.
 Greedy decoding takes ``argmax`` (the first index on ties, as JAX does);
@@ -51,6 +57,12 @@ class Request:
 class ServeEngine:
     def __init__(self, model, *, max_batch: int = 8, pad_id: int = 0,
                  seed: int = 0):
+        if model.cfg.is_encoder_decoder:
+            raise ValueError(
+                f"ServeEngine serves decoder-only models; {model.cfg.name} is an "
+                "encoder-decoder, whose prefill needs encoder frames that a "
+                "request does not carry: call its prefill(frames, tokens) and "
+                "decode_step directly")
         self.model = model
         self.device = model.device
         self.max_batch = max_batch

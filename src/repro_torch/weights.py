@@ -5,8 +5,10 @@ numpy arrays (``jax.tree.map(np.asarray, params)``) and returns a state dict
 for :class:`repro_torch.models.DecoderLM`.  Superblock params, stacked on a
 leading repeat dim under ``blocks/pos<j>``, are unstacked into layer
 ``r * len(pattern) + j``; the unscanned remainder layers under
-``tail/tail<j>`` become layer ``n_repeats * len(pattern) + j``.
-Weights keep their ``(d_in, d_out)`` orientation.  bf16 arrays (numpy dtype
+``tail/tail<j>`` become layer ``n_repeats * len(pattern) + j``.  The
+encoder-decoder's ``encoder`` and ``decoder`` trees, stacked on a leading
+layer dim, become ``encoder.<l>.`` and ``decoder.<l>.``.  MoE expert
+weights (E, D, F) are leaves like any other.  Weights keep their ``(d_in, d_out)`` orientation.  bf16 arrays (numpy dtype
 named ``bfloat16``) cross through a ``uint16`` view, because
 ``torch.from_numpy`` does not take them.
 
@@ -53,10 +55,20 @@ def _flatten(tree: Dict, prefix: str, out: Dict[str, torch.Tensor]) -> None:
             out[f"{prefix}{key}"] = to_torch(val)
 
 
+# The encoder-decoder's layer stacks: one layer a step of the leading dim.
+_STACKS = ("encoder", "decoder")
+
+
 def params_from_jax(np_tree: Dict) -> Dict[str, torch.Tensor]:
     state: Dict[str, torch.Tensor] = {}
-    _flatten({k: v for k, v in np_tree.items() if k not in ("blocks", "tail")},
-             "", state)
+    _flatten({k: v for k, v in np_tree.items()
+              if k not in ("blocks", "tail") + _STACKS}, "", state)
+    for stack in _STACKS:
+        leaves: Dict[str, torch.Tensor] = {}
+        _flatten(np_tree.get(stack, {}), "", leaves)
+        for name, stacked in leaves.items():
+            for layer in range(stacked.shape[0]):
+                state[f"{stack}.{layer}.{name}"] = stacked[layer].clone()
     blocks = np_tree.get("blocks", {})
     k = len(blocks)
     n_repeats = 0
@@ -76,22 +88,30 @@ def jax_layout(names, period: int) -> Dict[str, Union[str, List[str]]]:
     """Where each leaf of a port state dict lives in the reference's tree.
 
     Maps each leaf path of the reference (``"embed"``,
-    ``"blocks/pos0/ssm/in_proj"``, ``"tail/tail1/norm1/scale"``) to the
-    state-dict name it holds or, for a leaf stacked on the repeat dim, the
-    names of its layers in repeat order.  ``period`` is the superblock's
-    length, ``len(cfg.pattern)``; the layer count is read off the names.
+    ``"blocks/pos0/ssm/in_proj"``, ``"tail/tail1/norm1/scale"``,
+    ``"decoder/cross_attn/wq/w"``) to the state-dict name it holds or, for a
+    leaf stacked on the repeat (or encoder/decoder layer) dim, the names of
+    its layers in order.  ``period`` is the superblock's length,
+    ``len(cfg.pattern)``; the layer counts are read off the names.
     """
     names = list(names)
-    layers = [int(n.split(".")[1]) for n in names if n.startswith("blocks.")]
-    n_repeats = (max(layers) + 1) // period if layers else 0
+    depth: Dict[str, int] = {}
+    for n in names:
+        head = n.split(".")[0]
+        if head in ("blocks",) + _STACKS:
+            depth[head] = max(depth.get(head, 0), int(n.split(".")[1]) + 1)
+    n_repeats = depth.get("blocks", 0) // period
     out: Dict[str, Union[str, List[str]]] = {}
     for name in names:
-        if not name.startswith("blocks."):
+        head = name.split(".")[0]
+        if head not in depth:
             out[name.replace(".", "/")] = name
             continue
         _, layer, rest = name.split(".", 2)
         layer, rest = int(layer), rest.replace(".", "/")
-        if layer < n_repeats * period:
+        if head in _STACKS:
+            out.setdefault(f"{head}/{rest}", [None] * depth[head])[layer] = name
+        elif layer < n_repeats * period:
             stacked = out.setdefault(f"blocks/pos{layer % period}/{rest}",
                                      [None] * n_repeats)
             stacked[layer // period] = name

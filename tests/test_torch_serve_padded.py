@@ -179,7 +179,8 @@ def test_recurrentgemma_serves_700_token_prompts():
 
 
 @pytest.mark.parametrize("arch", ["stablelm-1.6b", "qwen2.5-32b", "gemma2-9b",
-                                  "gemma3-12b", "internvl2-2b"])
+                                  "gemma3-12b", "internvl2-2b", "mixtral-8x22b",
+                                  "arctic-480b", "seamless-m4t-medium"])
 def test_serve_cli_runs_attention_families_on_cpu(arch, capsys):
     out = serve_cli.main(["--arch", arch, "--smoke", "--device", "cpu",
                              "--batch", "2", "--prompt-len", "40", "--gen", "4"])
