@@ -86,7 +86,8 @@ Phases (any failure exits non-zero before the last line is printed):
    steps); seamless (``prefill``, 8 ``decode_step``s and ``forward``);
 6. training: ``repro_torch.launch.train.main`` trains mamba2-1.3b at full
    width and depth (AdamW, batch 8 x 128, fp32, deterministic) for 8 steps
-   with a platform checkpoint every 4, then again with ``--kill-at 4``.  The
+   with a platform checkpoint at the last, then again with a checkpoint
+   every 4 and ``--kill-at 4``.  The
    restarted run's losses of steps 5-8, the records of its final checkpoint
    (params, m, v) and its loader state must equal the uninterrupted run's bit
    for bit; every loss must be finite and the last three's mean below the
@@ -94,13 +95,33 @@ Phases (any failure exits non-zero before the last line is printed):
    (training runs the plain paths, as the reference's driver does: no kernel
    has a backward pass).  Then the loss and every gradient of smoke-size
    mamba2 and recurrentgemma on the card against the same step on the CPU,
-   in fp32, within 3e-4.  Prints a ``{"train": ...}`` line.
+   in fp32, within 3e-4.  Prints a ``{"train": ...}`` line;
+7. training at the production policies, in a one-rank NCCL process group:
+   (a) gemma2-9b at full width and depth (42 layers, 9.24 B parameters) on
+   the one-card "data" mesh under ``resolve_layout(cfg, SHAPES["train_4k"],
+   mesh, "auto")``, which must give ZeRO-3 (``remat="dots"``, 1
+   microbatch) and, through ``runtime_for``, bf16 params and compute;
+   Adafactor, since ``train_config_for``'s AdamW keeps fp32 moments (74 GB)
+   that do not fit one card beside bf16 params and gradients (37 GB); 6
+   steps of 1 x 4096 tokens (train_4k's 256 rows cut to 1) from the
+   platform's Fig. 1 flow through the sharded ``DeviceFeed``: losses finite,
+   the last three's mean below the first three's; (b) the same with 8-bit
+   AdamW; no kernel launches (the plain paths); (c) one step of each new
+   optimizer on smoke mamba2 and gemma2 on the card against the CPU
+   (params and Adafactor's state within 3e-4, 8-bit moments within one
+   quantum of their block); (d) ``remat="dots"`` against ``"none"`` on smoke
+   gemma2 (3e-4) and the peak memory of each remat mode at one full-width
+   layer group; (e) ``moe_apply_shardmap`` against ``moe_apply`` on one
+   mixtral-8x22b MoE layer at full width, fp32, on the (1, 1) mesh, within
+   1e-5.  Prints ``train7``, ``optimizers``, ``remat`` and ``moe_shardmap``
+   lines.
 
 With ``--profile``, phases 3, 4, 4b and 4c also trace one prefill of their
 first measured wave and 8 decode steps under ``torch.profiler`` and print
 where the device time goes and the device's idle share (see
-``profile_serve``), phase 4d its prefill, 8 decode steps and its forward, and
-phase 6 traces one full-width training step (see ``profile_train``).
+``profile_serve``), phase 4d its prefill, 8 decode steps and its forward,
+phase 6 traces one full-width training step (see ``profile_train``), and
+phase 7 one more step with each optimizer.
 
 Then one JSON line describing each kernel, the nvidia-smi line again, and as
 the last line ``{"ok": true, "device": {...}}``.
@@ -1114,7 +1135,12 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 128, 8
 # step 4, as the warmup lifts the rate (PERF.md, PR 16).
 TRAIN_ARGS = ["--arch", "mamba2-1.3b", "--batch", str(TRAIN_BATCH),
               "--seq-len", str(TRAIN_SEQ), "--steps", str(TRAIN_STEPS),
-              "--checkpoint-every", "4", "--log-every", "1", "--lr", "3e-4"]
+              "--log-every", "1", "--lr", "3e-4"]
+# The uninterrupted run checkpoints once, at its last step; the killed run
+# at step 4 (which it restores) and at its last step.  Each save of the
+# 16 GB state takes ~2 minutes of host zlib.
+FULL_ARGS = TRAIN_ARGS + ["--checkpoint-every", str(TRAIN_STEPS)]
+KILLED_ARGS = TRAIN_ARGS + ["--checkpoint-every", "4", "--kill-at", "4"]
 
 
 def checkpoint_records(run):
@@ -1253,7 +1279,7 @@ def train_phase(torch, profiling: bool) -> None:
         setattr(fn, attr, 0)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    full = train_main(TRAIN_ARGS)
+    full = train_main(FULL_ARGS)
     full_s = time.perf_counter() - t0
     full_records, n_params = checkpoint_records(full)
     full_state = full["loader"].state()
@@ -1262,7 +1288,7 @@ def train_phase(torch, profiling: bool) -> None:
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    killed = train_main(TRAIN_ARGS + ["--kill-at", "4"])
+    killed = train_main(KILLED_ARGS)
     killed_s = time.perf_counter() - t0
     killed_records, _ = checkpoint_records(killed)
     killed_state = killed["loader"].state()
@@ -1274,7 +1300,8 @@ def train_phase(torch, profiling: bool) -> None:
     # Printed before the checks, so that a failed run still shows its numbers.
     log("train " + json.dumps({"train": {
         "arch": "mamba2-1.3b", "params": n_params, "batch": TRAIN_BATCH,
-        "seq_len": TRAIN_SEQ, "steps": TRAIN_STEPS, "args": TRAIN_ARGS,
+        "seq_len": TRAIN_SEQ, "steps": TRAIN_STEPS, "args": FULL_ARGS,
+        "killed_args": KILLED_ARGS,
         "train_tokens_per_s": TRAIN_BATCH * TRAIN_SEQ * (len(step_s) - 1) / sum(step_s[1:]),
         "step_ms": statistics.median(step_s[1:]) * 1e3,
         "step_ms_each": [s * 1e3 for s in step_s],
@@ -1312,6 +1339,294 @@ def train_phase(torch, profiling: bool) -> None:
         profile_train(torch)
         gc.collect()
         torch.cuda.empty_cache()
+
+# Phase 7: gemma2-9b trained at train_4k's sequence under the launch
+# policies.  The global batch is cut from 256 rows to one (what one card
+# holds next to the weights, gradients and saved activations).
+PROD_ARCH, PROD_SHAPE, PROD_BATCH, PROD_STEPS = "gemma2-9b", "train_4k", 1, 6
+# warmup 0: train_config_for's default warmup of 100 steps keeps the first
+# six updates (lr <= 2.1e-5) below a bf16 parameter's last digit.
+PROD_OPT_OVERRIDES = {"warmup_steps": 0}
+
+
+def tensors_bytes(tree) -> int:
+    if hasattr(tree, "element_size"):
+        return tree.numel() * tree.element_size()
+    return sum(tensors_bytes(v) for v in tree.values())
+
+
+def train_production(torch, opt_name: str, profiling: bool = False) -> dict:
+    """Phase 7 (a)/(b): the launch policies' run of gemma2-9b on the
+    one-card "data" mesh, batches from the platform's Fig. 1 flow packed to
+    train_4k's 4096 tokens, through ``DeviceFeed``'s sharded feed.  With
+    ``profiling``, one more step under ``torch.profiler`` (its table goes to
+    ``chiprun_out/profile_gemma2-9b_train_<optimizer>.txt``)."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.data import DeviceFeed, ShardedSnapshotLoader
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.presets import resolve_layout
+    from repro_torch.launch.specs import runtime_for, train_config_for
+    from repro_torch.launch.train import build_platform
+    from repro_torch.models import build_model
+    from repro_torch.train import TrainConfig, make_optimizer, make_train_step
+    from repro_torch.train.sharding import ActivationSharding, batch_specs, named
+
+    cfg = get_config(PROD_ARCH)
+    shape = SHAPES[PROD_SHAPE]
+    mesh = make_local_mesh("cuda")
+    rules, rt_over, tc_over = resolve_layout(cfg, shape, mesh, "auto")
+    rt = runtime_for(cfg, shape, **rt_over).with_(act_sharding=ActivationSharding(rules))
+    policy = train_config_for(cfg, shape, mesh.size(), **PROD_OPT_OVERRIDES)
+    if (rt_over.get("remat"), tc_over.get("microbatches"), rt.param_dtype) != (
+            "dots", 1, torch.bfloat16):
+        fail(f"{PROD_ARCH} at {PROD_SHAPE}: the auto layout gave {rt_over}, {tc_over}, "
+             f"{rt.param_dtype}, not zero3's remat='dots', 1 microbatch, bf16 params")
+    train_cfg = TrainConfig(optimizer=dataclasses.replace(policy.optimizer, name=opt_name),
+                            microbatches=tc_over["microbatches"])
+    plat, _ = build_platform(shape.seq_len, n_docs=256)
+    loader = ShardedSnapshotLoader(plat.dataset("corpus/packed").plan(), PROD_BATCH,
+                                   shape.seq_len)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, rt, device="cuda", seed=0)
+    params = dict(model.named_parameters())
+    n_params = sum(p.numel() for p in params.values())
+    card_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    why = (f"train_config_for picks {policy.optimizer.name} below 1e11 parameters; its "
+           f"fp32 m and v ({8 * n_params / 1e9:.1f} GB) beside bf16 params and grads "
+           f"({4 * n_params / 1e9:.1f} GB) exceed the card's {card_gb:.1f} GB, so "
+           f"{opt_name}")
+    step_fn = make_train_step(model, train_cfg)
+    opt_state = make_optimizer(train_cfg.optimizer, period=len(cfg.pattern)).init(params)
+    state_bytes = tensors_bytes({k: v for k, v in opt_state.items() if k != "step"})
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    feed = iter(DeviceFeed(loader, "cuda",
+                           sharding_fn=lambda hb: named(mesh, batch_specs(hb, rules))))
+    losses, step_s = [], []
+
+    def step():
+        nonlocal params, opt_state
+        t0 = time.perf_counter()
+        batch, _ = next(feed)
+        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        losses.append(float(metrics["loss"]))
+        step_s.append(time.perf_counter() - t0)
+
+    for _ in range(PROD_STEPS):
+        step()
+    peak = torch.cuda.max_memory_allocated()
+    if profiling:
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step()
+        busy_ms, idle, launches, top = profile_table(torch, prof, step_s[-1] * 1e6, top=12)
+        log("profile " + json.dumps({
+            "model": cfg.name, "phase": f"train step, {opt_name}", "batch": PROD_BATCH,
+            "seq_len": shape.seq_len, "window_ms": step_s[-1] * 1e3,
+            "device_busy_ms": busy_ms, "device_idle_share": idle,
+            "kernel_launches": launches, "top_kernels": top}))
+        out_dir = Path(__file__).resolve().parent / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / f"profile_{cfg.name}_train_{opt_name}.txt").write_text(
+            prof.key_averages().table(sort_by="self_device_time_total", row_limit=50))
+        losses.pop()
+        step_s.pop()
+    feed.close()
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "params": n_params, "optimizer": opt_name, "policy_optimizer":
+           policy.optimizer.name, "why": why, "layout": "zero3", "remat": rt.remat,
+           "microbatches": train_cfg.microbatches, "param_dtype": str(rt.param_dtype),
+           "compute_dtype": str(rt.compute_dtype), "attn_impl": rt.attn_impl,
+           "lr": train_cfg.optimizer.lr, "warmup_steps": train_cfg.optimizer.warmup_steps,
+           "batch": PROD_BATCH, "seq_len": shape.seq_len, "steps": PROD_STEPS,
+           "losses": losses, "step_ms_each": [x * 1e3 for x in step_s],
+           "step_ms": statistics.median(step_s[1:]) * 1e3,
+           "tokens_per_s": PROD_BATCH * shape.seq_len * (len(step_s) - 1) / sum(step_s[1:]),
+           "peak_mem_gib": peak / 2**30, "opt_state_bytes": state_bytes,
+           "param_bytes": tensors_bytes(params), "build_s": build_s}
+    log("train7 " + json.dumps({"train_production": out}))
+    del model, params, opt_state, step_fn, feed
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not all(map(math.isfinite, losses)):
+        fail(f"{PROD_ARCH} with {opt_name}: losses not finite: {losses}")
+    if not statistics.mean(losses[-3:]) < statistics.mean(losses[:3]):
+        fail(f"{PROD_ARCH} with {opt_name}: the loss did not fall: {losses}")
+    return out
+
+
+def optimizers_card_vs_cpu(torch) -> dict:
+    """Phase 7 (c): one step of Adafactor and of 8-bit AdamW on smoke mamba2
+    (its vectors' quant blocks span its two layers) and smoke gemma2, on the
+    card against the same step on the CPU: params and Adafactor's state
+    within 3e-4, 8-bit moments within one quantum of their block."""
+    import numpy as np
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import RuntimeConfig, build_model
+    from repro_torch.train import make_optimizer
+    from repro_torch.train.optimizer import OptimizerConfig
+
+    report = {}
+    for arch in ("mamba2-1.3b", "gemma2-9b"):
+        model = build_model(get_smoke_config(arch), RuntimeConfig(), device="cpu", seed=9)
+        period = len(model.pattern)
+        rng = np.random.default_rng(11)
+        grads = {k: torch.from_numpy(rng.standard_normal(tuple(p.shape)).astype(np.float32))
+                 for k, p in model.named_parameters()}
+        for name in ("adafactor", "adamw8bit"):
+            opt = make_optimizer(OptimizerConfig(name=name, lr=1e-2, warmup_steps=0,
+                                                 factored_min_dim=16), period=period)
+            runs = {}
+            for dev in ("cpu", "cuda"):
+                params = {k: p.detach().clone().to(dev) for k, p in model.named_parameters()}
+                state = opt.init(params)
+                params, state = opt.update({k: g.to(dev) for k, g in grads.items()},
+                                           state, params)
+                runs[dev] = (params, state)
+            (p_cpu, s_cpu), (p_gpu, s_gpu) = runs["cpu"], runs["cuda"]
+            worst = max((p_gpu[k].cpu() - v).abs().max().item() for k, v in p_cpu.items())
+            bad = [k for k, v in p_cpu.items()
+                   if not torch.allclose(p_gpu[k].cpu(), v, atol=FP32_TOL, rtol=FP32_TOL)]
+            entry = {"params_max_abs_diff": worst}
+            if name == "adafactor":
+                pairs = [(f"{path}/{f}", t.cpu(), s_cpu["v"][path][f])
+                         for path, leaf in s_gpu["v"].items() for f, t in leaf.items()]
+                bad += [k for k, got, want in pairs
+                        if not torch.allclose(got, want, atol=FP32_TOL, rtol=FP32_TOL)]
+                entry["state_max_abs_diff"] = max((got - want).abs().max().item()
+                                                  for _, got, want in pairs)
+            else:
+                blocks = q_differ = 0
+                for moment in ("m", "v"):
+                    for path, q in s_cpu[moment].items():
+                        g = {f: t.cpu() for f, t in s_gpu[moment][path].items()}
+                        deq_c, deq_g = q["q"].float() * q["scale"], g["q"].float() * g["scale"]
+                        quantum = torch.maximum(q["scale"], g["scale"]) * (1 + 1e-6)
+                        if ((deq_g - deq_c).abs() > quantum).any():
+                            bad.append(f"{moment}/{path}")
+                        blocks += q["q"].shape[0]
+                        q_differ += int((q["q"] != g["q"]).any(dim=1).sum())
+                entry.update(blocks=blocks, blocks_whose_q_differ=q_differ)
+            report[f"{arch} {name}"] = entry
+            if bad:
+                fail(f"smoke {arch} {name} step on the card disagrees with the CPU: {bad[:8]}")
+    log("optimizers card vs CPU (one step; params and Adafactor state within "
+        f"{FP32_TOL}, 8-bit moments within one quantum) " + json.dumps(report))
+    return report
+
+
+def remat_checks(torch) -> dict:
+    """Phase 7 (d): remat="dots" against "none" on smoke gemma2 on the card
+    (fp32: the loss and every gradient within 3e-4), then the peak memory of
+    a loss and backward pass under each mode at one full-width gemma2 layer
+    group (a local and a global layer, bf16, train_4k's 4096 tokens)."""
+    import numpy as np
+    from repro_torch.configs import SHAPES, get_config, get_smoke_config
+    from repro_torch.launch.specs import runtime_for
+    from repro_torch.models import RuntimeConfig, build_model
+
+    rt = RuntimeConfig(compute_dtype=torch.float32, attn_impl="chunked")
+    cfg = get_smoke_config(PROD_ARCH)
+    rng = np.random.default_rng(12)
+    tokens = torch.from_numpy(rng.integers(3, cfg.vocab_size, size=(2, 65))).cuda()
+    batch = {"tokens": tokens[:, :64], "labels": tokens[:, 1:]}
+    out = {}
+    for mode in ("none", "dots"):
+        model = build_model(cfg, rt.with_(remat=mode), device="cuda", seed=13)
+        params = dict(model.named_parameters())
+        loss, _ = model.loss(batch)
+        out[mode] = [loss.detach()] + list(torch.autograd.grad(loss, list(params.values())))
+    worst = max((a - b).abs().max().item() for a, b in zip(out["none"], out["dots"]))
+    if not all(torch.allclose(a, b, atol=FP32_TOL, rtol=FP32_TOL)
+               for a, b in zip(out["none"], out["dots"])):
+        fail(f"remat='dots' changes smoke gemma2's loss or gradients: max abs diff {worst}")
+    del out
+    shape = SHAPES[PROD_SHAPE]
+    wide = dataclasses.replace(get_config(PROD_ARCH), n_layers=len(cfg.pattern))
+    model = build_model(wide, runtime_for(wide, shape), device="cuda", seed=0)
+    params = dict(model.named_parameters())
+    tokens = torch.from_numpy(rng.integers(3, wide.vocab_size,
+                                           size=(1, shape.seq_len + 1))).cuda()
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    peaks = {}
+    for mode in ("none", "full", "dots"):
+        model.rt = model.rt.with_(remat=mode)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss, _ = model.loss(batch)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        torch.cuda.synchronize()
+        peaks[mode] = (torch.cuda.max_memory_allocated() - base) / 2**30
+        del loss, grads
+    report = {"smoke_max_abs_diff": worst, "layer_group_peak_gib_above_params": peaks,
+              "layers": wide.n_layers, "seq_len": shape.seq_len, "param_dtype": "bfloat16"}
+    log("remat " + json.dumps(report))
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report
+
+
+def moe_shardmap_check(torch) -> dict:
+    """Phase 7 (e): moe_apply_shardmap against moe_apply on one
+    mixtral-8x22b MoE layer at full width, fp32, on the one-rank (1, 1)
+    ("data", "model") mesh under NCCL, within 1e-5 (the reference test's)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import RuntimeConfig
+    from repro_torch.models.common import Initializer
+    from repro_torch.models.moe import moe_apply, moe_apply_shardmap, moe_init
+    from repro_torch.train.sharding import ActivationSharding, ShardingRules
+
+    mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+    cfg = get_config("mixtral-8x22b")
+    rt = RuntimeConfig(compute_dtype=torch.float32, moe_group_size=512,
+                       act_sharding=ActivationSharding(ShardingRules(mesh)))
+    p = moe_init(Initializer(0, "cuda"), cfg, torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    x = torch.randn((2, 1024, cfg.d_model), generator=gen, device="cuda")
+    with torch.no_grad():
+        y_ref, aux_ref = moe_apply(p, x, cfg, rt)
+        y, aux = moe_apply_shardmap(p, x, cfg, rt)
+    err = (y - y_ref).abs().max().item()
+    report = {"backend": torch.distributed.get_backend(), "mesh": [1, 1],
+              "shape": list(x.shape), "y_max_abs_diff": err,
+              "aux": aux.item(), "aux_ref": aux_ref.item()}
+    log("moe_shardmap " + json.dumps(report))
+    ok = (torch.allclose(y, y_ref, atol=1e-5, rtol=1e-5)
+          and math.isclose(aux.item(), aux_ref.item(), rel_tol=1e-5))
+    del p, x, y, y_ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not ok:
+        fail(f"moe_apply_shardmap disagrees with moe_apply at mixtral's width: {report}")
+    return report
+
+
+def production_phase(torch, profiling: bool) -> dict:
+    """Phase 7 (see the module docstring).  Runs in a one-rank NCCL process
+    group (made on a FileStore, as the training driver makes one)."""
+    from repro_torch.launch.train import process_group
+
+    for fn, attr in counters().values():
+        setattr(fn, attr, 0)
+    with process_group(torch.device("cuda")):
+        runs = {name: train_production(torch, name, profiling)
+                for name in ("adafactor", "adamw8bit")}
+        got = {name: getattr(fn, attr) for name, (fn, attr) in counters().items()}
+        if any(n != 0 for n in got.values()):
+            fail(f"phase 7 launched a kernel: {got} (training runs the plain paths)")
+        optimizers_card_vs_cpu(torch)
+        remat_checks(torch)
+        moe_shardmap_check(torch)
+    return runs
 
 
 def main() -> None:
@@ -1391,6 +1706,7 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
+    log(f"phase 2 done at {time.perf_counter() - t_start:.1f} s")
     # 3. serve mamba2-1.3b at full width and depth ------------------------------
     prompt_gen = torch.Generator().manual_seed(1)
     cfg = get_config("mamba2-1.3b")
@@ -1412,6 +1728,7 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
+    log(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
     # 4. serve recurrentgemma-9b at full width and depth ------------------------
     cfg = get_config("recurrentgemma-9b")
     kinds = [cfg.pattern[i % len(cfg.pattern)] for i in range(cfg.n_layers)]
@@ -1437,18 +1754,22 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
+    log(f"phase 4 done at {time.perf_counter() - t_start:.1f} s")
     # 4b. serve gemma2-9b at full width and depth, through padded waves ---------
     for name, n in serve_gemma2(torch, prompt_gen, profiling).items():
         launches[name] += n
 
+    log(f"phase 4b done at {time.perf_counter() - t_start:.1f} s")
     # 4c. serve mixtral-8x22b at full width, depth 4 ------------------------------
     for name, n in serve_mixtral(torch, prompt_gen, profiling).items():
         launches[name] += n
 
+    log(f"phase 4c done at {time.perf_counter() - t_start:.1f} s")
     # 4d. seamless-m4t-medium at full width and depth ----------------------------
     for name, n in serve_seamless(torch, profiling).items():
         launches[name] += n
 
+    log(f"phase 4d done at {time.perf_counter() - t_start:.1f} s")
     # 5. reference: smoke-size models, kernel path vs plain path in fp32 ---------
     smoke_reference(torch, get_smoke_config("mamba2-1.3b"), {"ssd_impl": "chunked"},
                     (48,), 1, seed=3)
@@ -1468,8 +1789,14 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
+    log(f"phase 5 done at {time.perf_counter() - t_start:.1f} s")
     # 6. train mamba2-1.3b at full width and depth -------------------------------
     train_phase(torch, profiling)
+
+    log(f"phase 6 done at {time.perf_counter() - t_start:.1f} s")
+    # 7. train gemma2-9b at full width and depth under the launch policies -------
+    production_phase(torch, profiling)
+    log(f"phase 7 done at {time.perf_counter() - t_start:.1f} s")
 
     # The main path's largest call of each kernel (flash_fwd and ssd_fwd,
     # off the main path, at the serving shape in fp32).  flash_fwd's and

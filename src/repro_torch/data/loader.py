@@ -3,10 +3,9 @@ batches.
 
 Port of ``repro.data.loader``.  :class:`ShardedSnapshotLoader` is the
 reference's, line for line (its determinism contract is the checkpoint's),
-less ``device_batch``, which lays a batch onto a mesh and waits for the
-distribution slice, and with ``wait_fraction`` counting the consumer's time
-as its docstring says (see ``__iter__``); :class:`DeviceFeed` is rewritten
-for torch.
+with ``device_batch`` laying a batch onto a DeviceMesh as DTensors and with
+``wait_fraction`` counting the consumer's time as its docstring says (see
+``__iter__``); :class:`DeviceFeed` is rewritten for torch.
 
 Feed it a materialized :class:`~repro_torch.core.dataset.Snapshot` or — the
 preferred, allocation-free path — a lazy
@@ -491,6 +490,19 @@ class ShardedSnapshotLoader:
             else None
         return s
 
+    # ---------------------------------------------------------------- device
+
+    def device_batch(self, batch: Dict[str, np.ndarray], mesh, specs
+                     ) -> Dict[str, Any]:
+        """Lay a host batch (the same on every rank) onto the mesh per the
+        given specs (:func:`~repro_torch.train.sharding.batch_specs`), as
+        DTensors of which each rank holds its own piece."""
+        from ..train.sharding import from_global, named
+
+        return {k: from_global(torch.from_numpy(np.ascontiguousarray(v)),
+                               named(mesh, specs[k]))
+                for k, v in batch.items()}
+
 
 class DeviceFeed:
     """Depth-``depth`` double-buffered host→device feed over a loader.
@@ -511,10 +523,18 @@ class DeviceFeed:
     exactly when the host batch was consumed, so checkpointing it restores
     onto a bit-identical stream even while later batches are already
     buffered on the device.
+
+    ``sharding_fn(host_batch)`` builds, from the first batch, a dict of
+    :class:`~repro_torch.train.sharding.Sharding` matching the batch (the
+    usual route is ``named(mesh, batch_specs(...))``).  Then every rank
+    reads the same global host batch, copies only its own piece to
+    ``device`` and gets DTensors of the global shape; without it, the whole
+    batch lands on ``device`` as plain tensors.
     """
 
     def __init__(self, loader: ShardedSnapshotLoader,
-                 device: Union[str, torch.device], depth: int = 2):
+                 device: Union[str, torch.device], depth: int = 2,
+                 sharding_fn=None):
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("DeviceFeed: device 'cuda' requested but no "
@@ -525,6 +545,8 @@ class DeviceFeed:
         self._stream = None
         self._slots: List[Tuple[Dict[str, torch.Tensor], Any]] = []
         self._next_slot = 0
+        self._shardings: Optional[Dict[str, Any]] = None
+        self._sharding_fn = sharding_fn
         self._stats = {"transfers": 0, "put_dispatch_s": 0.0}
 
     def _pinned_slot(self, host: Dict[str, torch.Tensor]):
@@ -550,8 +572,15 @@ class DeviceFeed:
         t0 = time.perf_counter()
         host = {k: torch.from_numpy(np.ascontiguousarray(v))
                 for k, v in host_batch.items()}
+        if self._shardings is None and self._sharding_fn is not None:
+            self._shardings = self._sharding_fn(host_batch)
+        shapes = {k: v.shape for k, v in host.items()}
+        if self._shardings is not None:
+            from ..train.sharding import local_shard
+            host = {k: local_shard(v, self._shardings[k]).contiguous()
+                    for k, v in host.items()}
         if self.device.type != "cuda":
-            out = ({k: v.to(self.device) for k, v in host.items()}, None)
+            out = ({k: v.to(self.device) for k, v in host.items()}, None, shapes)
         else:
             if self._stream is None:
                 self._stream = torch.cuda.Stream(self.device)
@@ -562,18 +591,22 @@ class DeviceFeed:
                 event = torch.cuda.Event()
                 event.record(self._stream)
             self._slots[i] = (bufs, event)
-            out = (dev, event)
+            out = (dev, event, shapes)
         self._stats["transfers"] += 1
         self._stats["put_dispatch_s"] += time.perf_counter() - t0
         return out
 
-    def _hand_out(self, put) -> Dict[str, torch.Tensor]:
-        batch, event = put
+    def _hand_out(self, put) -> Dict[str, Any]:
+        batch, event, shapes = put
         if event is not None:
             stream = torch.cuda.current_stream(self.device)
             stream.wait_event(event)
             for t in batch.values():
                 t.record_stream(stream)
+        if self._shardings is not None:
+            from ..train.sharding import from_local
+            batch = {k: from_local(t, self._shardings[k], shapes[k])
+                     for k, t in batch.items()}
         return batch
 
     def __iter__(self):

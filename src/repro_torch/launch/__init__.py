@@ -1,1 +1,2 @@
-"""Drivers of the port (ported so far: ``serve`` and ``train``)."""
+"""Drivers and launch policies of the port: ``serve``, ``train``, ``mesh``,
+``specs`` and ``presets``."""

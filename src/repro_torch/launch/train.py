@@ -24,9 +24,21 @@ compute (``attn_impl="ref"``, the reference's ``"naive"``;
 ``"xla"``): no kernel has a backward pass.  It runs on the CUDA card unless
 ``--device cpu`` is given.
 
+Data parallelism, as the reference driver's ``ShardingRules(mesh,
+batch_axes=("data",), fsdp_axis=None, tp_axis=None)``: the ranks of the
+process group form a 1-D "data" mesh; every rank reads the same global
+batch, the feed hands each its rows (``batch_specs``), and the train step
+sums the gradients over "data" before the clip, so each step equals the
+one-process step on the global batch.  Under ``torchrun`` the group comes
+from its environment (NCCL on the card, gloo with ``--device cpu``);
+without it the driver makes a one-rank group on a ``FileStore`` in a
+temporary directory (no network port) and computes what one process does.
+
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
         --steps 10 --batch 4 --seq-len 64
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+        --smoke --device cpu --steps 10 --batch 4 --seq-len 64
 """
 
 from __future__ import annotations
@@ -35,10 +47,12 @@ import argparse
 import contextlib
 import gc
 import os
+import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..configs import get_config, get_smoke_config
 from ..core import Pipeline, Record, Workflow
@@ -52,6 +66,9 @@ from ..train import (TrainConfig, load_checkpoint, make_train_step,
                      save_checkpoint)
 from ..train.checkpoint import checkpoint_node_id
 from ..train.optimizer import OptimizerConfig, make_optimizer
+from ..train.sharding import (ActivationSharding, ShardingRules, batch_specs,
+                              named)
+from .mesh import make_local_mesh
 
 
 # The reference driver's runtime (fp32 compute through the plain paths),
@@ -110,6 +127,31 @@ def deterministic():
         torch.backends.cudnn.allow_tf32 = saved[2]
 
 
+@contextlib.contextmanager
+def process_group(device: torch.device):
+    """The default process group for the run: the caller's if one is up,
+    torchrun's (from its environment) if it launched us, else a one-rank
+    group on a FileStore in a temporary directory.  A group made here is
+    destroyed after the block."""
+    if dist.is_initialized():
+        yield
+        return
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    with contextlib.ExitStack() as stack:
+        if device.type == "cuda":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        if "WORLD_SIZE" in os.environ:
+            dist.init_process_group(backend)
+        else:
+            tmp = stack.enter_context(tempfile.TemporaryDirectory(prefix="train-pg-"))
+            dist.init_process_group(backend, store=dist.FileStore(
+                os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="mamba2-1.3b")
@@ -134,20 +176,27 @@ def main(argv=None) -> dict:
                     help="cuda (default; raises without a GPU) or cpu")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
-    with deterministic():
+    with deterministic(), process_group(device):
         return _train(args, device)
 
 
 def _train(args, device: torch.device) -> dict:
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     period = len(cfg.pattern)
-    rt = RuntimeConfig(**TRAIN_RUNTIME)
+    mesh = make_local_mesh(device.type)
+    rules = ShardingRules(mesh, batch_axes=("data",), fsdp_axis=None, tp_axis=None)
+    rt = RuntimeConfig(**TRAIN_RUNTIME, act_sharding=ActivationSharding(rules))
+    lead = dist.get_rank() == 0
+
+    def say(msg: str) -> None:
+        if lead:
+            print(msg)
 
     plat, wf_run = build_platform(args.seq_len, n_docs=max(
         args.batch * 8, 128))
     dm = plat.manager
     snap = plat.dataset("corpus/packed").checkout()
-    print(f"platform: snapshot {snap.snapshot_id} with {len(snap)} packs")
+    say(f"platform: snapshot {snap.snapshot_id} with {len(snap)} packs")
 
     def make_loader():
         # The loader feeds from the lazy plan (page-granular read surface;
@@ -158,7 +207,10 @@ def _train(args, device: torch.device) -> dict:
 
     train_cfg = TrainConfig(optimizer=OptimizerConfig(
         name="adamw", lr=args.lr, warmup_steps=10, total_steps=args.steps))
-    opt = make_optimizer(train_cfg.optimizer)
+    opt = make_optimizer(train_cfg.optimizer, period=period)
+
+    def batch_shardings(host_batch):
+        return named(mesh, batch_specs(host_batch, rules))
 
     def make_trainer():
         model = build_model(cfg, rt, device=device, seed=0)
@@ -177,6 +229,8 @@ def _train(args, device: torch.device) -> dict:
     load_s = None
     step = 0
 
+    saved = {}                        # step -> commit of its checkpoint
+
     def checkpoint(loader_state) -> str:
         t0 = time.perf_counter()
         cid = save_checkpoint(
@@ -184,6 +238,7 @@ def _train(args, device: torch.device) -> dict:
             extra={"loader": loader_state}, data_snapshot_id=snap.snapshot_id,
             run_node=run_node, period=period)
         save_s.append(time.perf_counter() - t0)
+        saved[step] = cid
         return cid
 
     def do_train(until: int):
@@ -195,7 +250,7 @@ def _train(args, device: torch.device) -> dict:
         nonlocal params, opt_state, step
         if step >= until:
             return
-        feed_it = iter(DeviceFeed(loader, device))
+        feed_it = iter(DeviceFeed(loader, device, sharding_fn=batch_shardings))
         try:
             while step < until:
                 t0 = time.perf_counter()
@@ -205,16 +260,16 @@ def _train(args, device: torch.device) -> dict:
                 losses.append(float(metrics["loss"]))
                 step_s.append(time.perf_counter() - t0)
                 if step % args.log_every == 0 or step == until:
-                    print(f"step {step:5d} loss {losses[-1]:.4f}")
+                    say(f"step {step:5d} loss {losses[-1]:.4f}")
                 if step % args.checkpoint_every == 0:
                     cid = checkpoint(loader_state)
-                    print(f"  checkpointed step {step} -> version {cid[:12]}")
+                    say(f"  checkpointed step {step} -> version {cid[:12]}")
         finally:
             feed_it.close()   # stop decode workers; buffered batches drop
 
     if args.kill_at and args.kill_at < args.steps:
         do_train(args.kill_at)
-        print(f"--- simulated crash at step {step}; restarting ---")
+        say(f"--- simulated crash at step {step}; restarting ---")
         # Restart path: drop the process's training state, rebuild it and
         # restore from the platform.
         del model, params, opt_state, step_fn, loader
@@ -235,24 +290,26 @@ def _train(args, device: torch.device) -> dict:
         loader.restore(extra["loader"])
         step = int(opt_state["step"])      # waits for the copies above
         load_s = time.perf_counter() - t0
-        print(f"restored at step {step}, loader {extra['loader']}")
+        say(f"restored at step {step}, loader {extra['loader']}")
 
     do_train(args.steps)
 
-    cid = checkpoint(loader.state())
-    print(f"final checkpoint -> {cid[:12]}")
+    # The last step's periodic checkpoint, where there is one, is the final
+    # one (the same params and state; its loader state is the batch's).
+    cid = saved.get(step) or checkpoint(loader.state())
+    say(f"final checkpoint -> {cid[:12]}")
     ld_stats = loader.stats()
-    print(f"loader: mode={ld_stats['mode']} "
-          f"wait_fraction={ld_stats['wait_fraction']:.3f} "
-          f"pages_streamed={int(ld_stats['pages_streamed'])} "
-          f"peak_resident_ids={int(ld_stats['peak_resident_ids'])}")
+    say(f"loader: mode={ld_stats['mode']} "
+        f"wait_fraction={ld_stats['wait_fraction']:.3f} "
+        f"pages_streamed={int(ld_stats['pages_streamed'])} "
+        f"peak_resident_ids={int(ld_stats['peak_resident_ids'])}")
     first, last = np.mean(losses[:5]), np.mean(losses[-5:])
-    print(f"loss: first5={first:.4f} last5={last:.4f} "
-          f"({'improved' if last < first else 'NOT improved'})")
+    say(f"loss: first5={first:.4f} last5={last:.4f} "
+        f"({'improved' if last < first else 'NOT improved'})")
     # lineage: the checkpoint's provenance reaches the raw corpus
     anc = dm.lineage.ancestors(checkpoint_node_id(f"checkpoints/{cfg.name}",
                                                   step))
-    print(f"lineage ancestors of final checkpoint: {len(anc)} node(s)")
+    say(f"lineage ancestors of final checkpoint: {len(anc)} node(s)")
     return {"losses": losses, "steps": step, "dm": dm, "platform": plat,
             "checkpoint": cid, "improved": bool(last < first),
             "loader": loader, "loader_stats": ld_stats, "step_s": step_s,

@@ -68,9 +68,9 @@ def attn_apply(
     B, S, _ = x.shape
     Hq, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     src = x if kv_x is None else kv_x
-    q = _project(params["wq"], x, Hq, dh)
-    k = _project(params["wk"], src, Hkv, dh)
-    v = _project(params["wv"], src, Hkv, dh)
+    q = rt.heads_constraint(_project(params["wq"], x, Hq, dh))
+    k = rt.heads_constraint(_project(params["wk"], src, Hkv, dh))
+    v = rt.heads_constraint(_project(params["wv"], src, Hkv, dh))
     if use_rope and kv_x is None:
         if positions is None:
             positions = torch.arange(S, device=x.device)

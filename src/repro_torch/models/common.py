@@ -1,16 +1,18 @@
 """Shared model building blocks: runtime knobs, init helpers, norms.
 
-Port of ``repro.models.common`` for the serving slices.  Parameters are
-``nn.Parameter``s held in ``nn.ParameterDict``s with the JAX package's key
-names and ``(d_in, d_out)`` orientation; the apply functions are plain
-functions on tensors, as in the reference.
+Port of ``repro.models.common``.  Parameters are ``nn.Parameter``s held in
+``nn.ParameterDict``s with the JAX package's key names and ``(d_in, d_out)``
+orientation; the apply functions are plain functions on tensors, as in the
+reference.  A model built on the ``meta`` device holds shapes and dtypes
+only (the counterpart of the reference's ``init_abstract``): the sharding
+rules read full-size shapes from it without memory.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional, Union
+from typing import Any, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -30,14 +32,40 @@ class RuntimeConfig:
     attn_impl: str = "auto"              # auto | cuda | chunked | ref
     ssd_impl: str = "auto"               # auto | cuda | chunked | ref
     rglru_impl: str = "auto"             # auto | cuda | scan | ref
-    remat: str = "none"                  # none | full (training)
+    remat: str = "none"                  # none | full | dots (training)
+    # Accepted for the reference's signature: the port always runs a Python
+    # loop over its per-layer modules, and both values compute the same.
+    scan_layers: bool = True
     attn_block_q: int = 512
     attn_block_k: int = 1024
     moe_group_size: int = 512            # MoE capacity groups (tokens)
     max_cache_len: int = 0               # serve: KV cache allocation length
+    # ActivationSharding (train/sharding.py) or None; the models call
+    # .hidden()/.logits() at the reference's constraint points when set.
+    act_sharding: Any = None
+    # Pin q/k/v head sharding explicitly (heads over tp, or seq in "seq" mode).
+    constrain_attn_heads: bool = False
+    # MoE execution path: "gspmd" (the capacity einsums, moe_apply) or
+    # "shard_map" (explicit all-to-all expert parallelism, moe_apply_shardmap).
+    moe_impl: str = "gspmd"
 
     def with_(self, **kw) -> "RuntimeConfig":
         return dataclasses.replace(self, **kw)
+
+    def hidden(self, x):
+        return self.act_sharding.hidden(x) if self.act_sharding else x
+
+    def logits_constraint(self, x):
+        return self.act_sharding.logits(x) if self.act_sharding else x
+
+    def heads_constraint(self, x):
+        if self.act_sharding and self.constrain_attn_heads:
+            return self.act_sharding.heads(x)
+        return x
+
+    def moe_constraint(self, x):
+        return (self.act_sharding.moe_expert_major(x)
+                if self.act_sharding else x)
 
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
@@ -50,13 +78,18 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
 
 
 class Initializer:
-    """Deterministic param init (truncated normal on [-2, 2] x scale)."""
+    """Deterministic param init (truncated normal on [-2, 2] x scale).  On
+    the ``meta`` device it draws nothing: the parameters are shapes and
+    dtypes only."""
 
     def __init__(self, seed: int, device: Union[str, torch.device]):
         self.device = resolve_device(device)
-        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.generator = (None if self.device.type == "meta" else
+                          torch.Generator(device=self.device).manual_seed(seed))
 
     def normal(self, shape, scale: float, dtype: torch.dtype) -> nn.Parameter:
+        if self.generator is None:
+            return nn.Parameter(torch.empty(shape, dtype=dtype, device=self.device))
         t = torch.empty(shape, dtype=torch.float32, device=self.device)
         nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=self.generator)
         return nn.Parameter((t * scale).to(dtype))

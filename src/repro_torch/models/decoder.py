@@ -16,14 +16,20 @@ Modality frontends are stubs, as in the reference: a VLM's patch embeddings
 arrive precomputed as ``frontend_embeds`` (B, P, d_model) and occupy the
 sequence prefix; ``loss`` supervises only the text positions.
 
-Training: ``loss`` is the reference's masked next-token cross entropy, and
-``RuntimeConfig.remat="full"`` runs each layer under
-``torch.utils.checkpoint`` (the reference's ``_remat`` wraps each superblock
-in ``jax.checkpoint`` with nothing saveable; recomputing per layer keeps the
-same values).  Gradients come from autograd through the plain versions of the
-kernels (``ssd_impl="chunked"``, ``rglru_impl="scan"``, ``attn_impl="ref"``):
-the Hopper kernels are forward-only and their wrappers refuse inputs that
-require grad.
+Training: ``loss`` is the reference's masked next-token cross entropy.
+``RuntimeConfig.remat`` recomputes each layer in the backward pass:
+``"full"`` saves nothing inside it (the reference's ``jax.checkpoint`` with
+``nothing_saveable`` around each superblock), ``"dots"`` saves the outputs
+of matrix products without batch dims, ``aten.mm`` and ``aten.addmm``, and
+recomputes everything else, ``aten.bmm`` included (the reference's
+``checkpoint_dots_with_no_batch_dims``), as selective activation
+checkpointing; recomputing per layer keeps the same values.  MoE layers run
+``moe_apply`` or, with ``RuntimeConfig.moe_impl="shard_map"``,
+``moe_apply_shardmap``; ``RuntimeConfig.act_sharding`` is called at the
+reference's constraint points.  Gradients come from autograd through the
+plain versions of the kernels (``ssd_impl="chunked"``, ``rglru_impl="scan"``,
+``attn_impl="ref"``): the Hopper kernels are forward-only and their wrappers
+refuse inputs that require grad.
 
 The serving methods keep the reference's signatures minus ``params`` (the
 module holds them).  The decode cache is a list with one dict per layer:
@@ -39,33 +45,49 @@ keeps decode from attending the pads' K/V in either cache.
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Dict, List, Optional, Union
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..configs.base import ModelConfig
 from .attention import attn_apply, attn_decode, attn_init, init_kv_cache
 from .common import (Initializer, RuntimeConfig, mlp_apply, mlp_init,
                      norm_apply, norm_init, resolve_device, softcap)
-from .moe import moe_apply, moe_decode, moe_init
+from .moe import moe_apply, moe_apply_shardmap, moe_decode, moe_init
 from .recurrent_block import init_rec_cache, rec_apply, rec_decode, rec_init
 from .ssm_block import init_ssm_cache, ssm_apply, ssm_decode, ssm_init
 
-__all__ = ["DecoderLM", "xent_loss"]
+__all__ = ["DecoderLM", "xent_loss", "remat_call"]
 
-_REMAT = ("none", "full")
+_REMAT = ("none", "full", "dots")
+# Matrix products without batch dims: what remat="dots" keeps.
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
 def check_remat(rt: RuntimeConfig) -> None:
-    """Refuse a remat mode the port does not run."""
-    if rt.remat == "dots":
-        raise NotImplementedError(
-            "remat='dots' (save the matmul outputs) is not ported yet: the "
-            "distribution slice")
     if rt.remat not in _REMAT:
-        raise ValueError(f"unknown remat mode {rt.remat!r}")
+        raise ValueError(f"unknown remat mode {rt.remat!r}; choose from {_REMAT}")
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_call(mode: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, its activations recomputed in the backward
+    pass per ``mode`` when grad mode is on (see the module docstring)."""
+    if mode == "none" or not torch.is_grad_enabled():
+        return fn(*args, **kwargs)
+    if mode == "full":
+        return checkpoint(fn, *args, use_reentrant=False, **kwargs)
+    return checkpoint(fn, *args, use_reentrant=False, **kwargs,
+                      context_fn=partial(create_selective_checkpoint_contexts,
+                                         _dots_policy))
 
 
 def _block_window(kind: str, cfg: ModelConfig) -> Optional[int]:
@@ -152,7 +174,7 @@ class DecoderLM(nn.Module):
             x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=x.dtype)
         if frontend_embeds is not None:
             x = torch.cat([frontend_embeds.to(x.dtype), x], dim=1)
-        return x
+        return self.rt.hidden(x)
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
@@ -162,7 +184,7 @@ class DecoderLM(nn.Module):
         if cfg.padded_vocab != cfg.vocab_size:
             iota = torch.arange(cfg.padded_vocab, device=logits.device)
             logits = torch.where(iota < cfg.vocab_size, logits, -1e30)
-        return logits
+        return self.rt.logits_constraint(logits)
 
     def _mlp_sublayer(self, p, x: torch.Tensor, mix: torch.Tensor,
                       decode: bool = False) -> torch.Tensor:
@@ -178,7 +200,9 @@ class DecoderLM(nn.Module):
             if decode:
                 y = moe_decode(p["moe"], h, cfg, self.rt)
             else:
-                y, _aux = moe_apply(p["moe"], h, cfg, self.rt)
+                moe_fn = (moe_apply_shardmap if self.rt.moe_impl == "shard_map"
+                          else moe_apply)
+                y, _aux = moe_fn(p["moe"], h, cfg, self.rt)
             if cfg.dense_residual:
                 y = y + mlp_apply(p["mlp"], h, cfg.act)
         else:
@@ -198,7 +222,7 @@ class DecoderLM(nn.Module):
             mix = attn_apply(p["attn"], h, cfg, rt, positions=positions,
                              causal=True, window=_block_window(kind, cfg),
                              segments=segments)
-        return self._mlp_sublayer(p, x, mix)
+        return rt.hidden(self._mlp_sublayer(p, x, mix))
 
     def _positions(self, x: torch.Tensor, positions):
         if positions is None:
@@ -212,14 +236,9 @@ class DecoderLM(nn.Module):
         x = self._embed(batch["tokens"], batch.get("frontend_embeds"))
         positions = self._positions(x, batch.get("positions"))
         segments = batch.get("segments")
-        remat = self.rt.remat == "full" and torch.is_grad_enabled()
         for kind, p in zip(self.kinds, self.blocks):
-            if remat:
-                x = checkpoint(self._apply_block, kind, p, x, positions=positions,
-                               segments=segments, use_reentrant=False)
-            else:
-                x = self._apply_block(kind, p, x, positions=positions,
-                                      segments=segments)
+            x = remat_call(self.rt.remat, self._apply_block, kind, p, x,
+                           positions=positions, segments=segments)
         return self._logits(x)
 
     def loss(self, batch: Dict[str, torch.Tensor]):

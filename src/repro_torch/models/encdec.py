@@ -28,13 +28,12 @@ from typing import Dict, List, Optional, Union
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from .attention import attn_apply, attn_decode, attn_init, init_kv_cache
 from .common import (Initializer, RuntimeConfig, dense_apply, mlp_apply,
                      mlp_init, norm_apply, norm_init, resolve_device, softcap)
-from .decoder import check_remat, xent_loss
+from .decoder import check_remat, remat_call, xent_loss
 
 __all__ = ["EncDecLM"]
 
@@ -79,12 +78,11 @@ class EncDecLM(nn.Module):
         self.load_state_dict(params_from_jax(np_tree))
 
     def _layers(self, fn, layers, x, *args):
-        """x through ``fn(p, x, *args)`` for each layer, each under
-        ``torch.utils.checkpoint`` when training with ``remat="full"``."""
-        remat = self.rt.remat == "full" and torch.is_grad_enabled()
+        """x through ``fn(p, x, *args)`` for each layer, each recomputed in
+        the backward pass per ``RuntimeConfig.remat`` (``"full"``: nothing
+        saved; ``"dots"``: the matrix products without batch dims saved)."""
         for p in layers:
-            x = (checkpoint(fn, p, x, *args, use_reentrant=False) if remat
-                 else fn(p, x, *args))
+            x = self.rt.hidden(remat_call(self.rt.remat, fn, p, x, *args))
         return x
 
     # ------------------------------------------------------------------ encoder
@@ -124,7 +122,7 @@ class EncDecLM(nn.Module):
         if cfg.padded_vocab != cfg.vocab_size:
             iota = torch.arange(cfg.padded_vocab, device=logits.device)
             logits = torch.where(iota < cfg.vocab_size, logits, -1e30)
-        return logits
+        return self.rt.logits_constraint(logits)
 
     def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """``batch["frontend_embeds"]`` (B, S_enc, D) and ``batch["tokens"]``

@@ -18,16 +18,25 @@ raw bits under its dtype name ``bfloat16``.  ``period`` is the model's
 superblock length, ``len(cfg.pattern)``.
 
 Trees here are the port's: a state dict (name -> tensor) for the params, and
-``{"m": state dict, "v": state dict, "step": tensor}`` for AdamW's state.
-Each leaf is read or written one record at a time, so a full-width
-checkpoint never sits on the host twice.
+for the optimizer ``{"m": state dict, "v": state dict, "step": tensor}``
+(AdamW), ``{"v": {path: {"vr", "vc"} or {"v"}}, "step"}`` (Adafactor) or
+``{"m": {path: {"q", "scale"}}, "v": ..., "step"}`` (8-bit AdamW), the last
+two kept per reference leaf already, so their records are the reference's
+(``opt/v/<path>/vr``, ``opt/m/<path>/q``, ...).  Each leaf is read or
+written one record at a time, so a full-width checkpoint never sits on the
+host twice.
+
+Restore is elastic: ``param_shardings``, a dict of
+:class:`~repro_torch.train.sharding.Sharding` by param name, lays each
+restored param onto its DeviceMesh with ``distribute_tensor``, so a
+checkpoint written on one topology restores onto another.
 """
 
 from __future__ import annotations
 
 import json
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Dict, Iterator, List, Mapping, Optional, Tuple, Union
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,29 +44,13 @@ import torch
 from ..core import DatasetManager, Record
 from ..core.dataset import version_node_id
 from ..core.lineage import EdgeKind, NodeKind
-from ..weights import jax_layout, to_numpy
+from ..weights import jax_layout, reference_leaves, to_numpy
 
 __all__ = ["save_checkpoint", "load_checkpoint", "latest_step",
            "checkpoint_node_id"]
 
 Tree = Dict[str, Any]
 _READ_WORKERS = 8
-
-
-def _leaves(tree: Tree, period: int, prefix: str
-            ) -> Iterator[Tuple[str, Union[str, List[str]], Mapping]]:
-    """(record name, state-dict name or stacked names, the dict holding
-    them) for every leaf, in the reference's layout.  A dict whose values
-    are all tensors is a state dict; other dicts nest, as pytrees do."""
-    if all(isinstance(v, torch.Tensor) for v in tree.values()):
-        for path, names in jax_layout(tree, period).items():
-            yield prefix + path, names, tree
-        return
-    for key, sub in tree.items():
-        if isinstance(sub, torch.Tensor):
-            yield prefix + key, key, tree
-        else:
-            yield from _leaves(sub, period, f"{prefix}{key}/")
 
 
 def _stacked(src: Mapping[str, torch.Tensor], names: List[str]) -> np.ndarray:
@@ -72,7 +65,7 @@ def _stacked(src: Mapping[str, torch.Tensor], names: List[str]) -> np.ndarray:
 
 def _leaf_records(tree: Tree, period: int, prefix: str) -> List[Record]:
     records = []
-    for name, names, src in _leaves(tree, period, prefix):
+    for name, names, src in reference_leaves(tree, period, prefix):
         stacked = isinstance(names, list)
         arr = _stacked(src, names) if stacked else to_numpy(src[names])
         dtype = src[names[0] if stacked else names].dtype
@@ -143,21 +136,33 @@ def _place(arr: np.ndarray, dtype: str, like: torch.Tensor) -> torch.Tensor:
     return t.to(device=like.device, dtype=like.dtype)
 
 
-def _read_tree(read, like: Tree, period: int, prefix: str) -> Tree:
+def _read_tree(read, like: Tree, period: int, prefix: str,
+               shardings: Optional[Mapping] = None) -> Tree:
     """``like``'s tree, each leaf from ``read(record name)`` -> (array,
-    dtype name)."""
+    dtype name); a state dict's leaves laid onto the mesh of their entry in
+    ``shardings``, where it has one."""
+    shardings = shardings or {}
+
+    def place(arr, dtype, like_leaf, sharding=None):
+        t = _place(arr, dtype, like_leaf)
+        if sharding is None:
+            return t
+        from torch.distributed.tensor import distribute_tensor
+        return distribute_tensor(t.to(sharding.mesh.device_type), sharding.mesh,
+                                 sharding.placements)
+
     if all(isinstance(v, torch.Tensor) for v in like.values()):
         out: Tree = {}
         for path, names in jax_layout(like, period).items():
             arr, dtype = read(prefix + path)
             if isinstance(names, list):
                 for r, n in enumerate(names):
-                    out[n] = _place(arr[r], dtype, like[n])
+                    out[n] = place(arr[r], dtype, like[n], shardings.get(n))
             else:
-                out[names] = _place(arr, dtype, like[names])
+                out[names] = place(arr, dtype, like[names], shardings.get(names))
             del arr
         return out
-    return {k: (_place(*read(prefix + k), v) if isinstance(v, torch.Tensor)
+    return {k: (place(*read(prefix + k), v) if isinstance(v, torch.Tensor)
                 else _read_tree(read, v, period, f"{prefix}{k}/"))
             for k, v in like.items()}
 
@@ -168,23 +173,25 @@ def load_checkpoint(
     like_params: Mapping[str, torch.Tensor],
     like_opt: Optional[Tree] = None,
     rev: str = "latest",
+    param_shardings: Optional[Mapping] = None,
     actor: str = "trainer",
     *,
     period: int,
 ) -> Tuple[Dict[str, torch.Tensor], Optional[Tree], Dict[str, Any]]:
     """Restore (params, opt_state, extra).  ``like_*`` give the trees' names,
     dtypes and devices (the model's parameters and ``opt.init`` of them, for
-    instance); the restored tensors are new, on those devices.
+    instance); the restored tensors are new, on those devices, or DTensors
+    on the mesh of their sharding in ``param_shardings``.
 
     The store decodes and verifies a record's chunks in the reading thread
     (zlib and sha256 release the GIL), so ``_READ_WORKERS`` threads read the
     records while this one places them, in order."""
     snap = dm.checkout(dataset, actor, rev=rev, register_snapshot=False)
-    trees = [("params/", dict(like_params))]
+    trees = [("params/", dict(like_params), param_shardings)]
     if like_opt is not None:
-        trees.append(("opt/", like_opt))
-    names = [name for prefix, like in trees
-             for name, _, _ in _leaves(like, period, prefix)]
+        trees.append(("opt/", like_opt, None))
+    names = [name for prefix, like, _ in trees
+             for name, _, _ in reference_leaves(like, period, prefix)]
     with ThreadPoolExecutor(max_workers=_READ_WORKERS,
                             thread_name_prefix="checkpoint-read") as pool:
         pending = {name: pool.submit(_read_leaf, snap, name) for name in names}
@@ -192,7 +199,8 @@ def load_checkpoint(
         def read(name: str):
             return pending.pop(name).result()
 
-        restored = [_read_tree(read, like, period, prefix) for prefix, like in trees]
+        restored = [_read_tree(read, like, period, prefix, sh)
+                    for prefix, like, sh in trees]
     params = restored[0]
     opt_state = restored[1] if like_opt is not None else None
     extra: Dict[str, Any] = {}

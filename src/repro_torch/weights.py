@@ -18,17 +18,25 @@ dim.  Its bf16 leaves come back as their raw bits (``uint16``), since numpy
 has no bf16 of its own; view them as bf16 on the JAX side
 (``arr.view(jnp.bfloat16)``).  ``jax_layout`` is the name map both
 directions and the checkpoints use.
+
+``opt_state_to_jax`` and ``opt_state_from_jax`` carry an optimizer state the
+same way: AdamW's ``m``/``v`` are state dicts; Adafactor's and 8-bit AdamW's
+are already kept per reference leaf, keyed by its path (``{"v": {path:
+{"vr", "vc"} or {"v"}}}``, ``{"m": {path: {"q", "scale"}}, ...}``), and
+only nest or flatten.  ``reference_leaves`` walks a port tree in the
+reference's layout; the checkpoints write their records from it.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Union
+from typing import Any, Dict, Iterator, List, Mapping, Tuple, Union
 
 import numpy as np
 import torch
 
 __all__ = ["params_from_jax", "params_to_jax", "jax_layout", "to_torch",
-           "to_numpy"]
+           "to_numpy", "reference_leaves", "opt_state_to_jax",
+           "opt_state_from_jax"]
 
 
 def to_torch(arr) -> torch.Tensor:
@@ -120,16 +128,89 @@ def jax_layout(names, period: int) -> Dict[str, Union[str, List[str]]]:
     return out
 
 
-def params_to_jax(state: Mapping[str, torch.Tensor], period: int) -> Dict:
-    """A port state dict as the reference's nested tree of numpy arrays
-    (see ``jax_layout``; bf16 as raw ``uint16`` bits)."""
+def reference_leaves(tree: Mapping, period: int, prefix: str = ""
+                     ) -> Iterator[Tuple[str, Union[str, List[str]], Mapping]]:
+    """(reference path, state-dict name or stacked names, the dict holding
+    them) for every leaf of a port tree, in the reference's layout.  A dict
+    whose values are all tensors is a state dict (``jax_layout`` places its
+    layers); other dicts nest, as pytrees do."""
+    if all(isinstance(v, torch.Tensor) for v in tree.values()):
+        for path, names in jax_layout(tree, period).items():
+            yield prefix + path, names, tree
+        return
+    for key, sub in tree.items():
+        if isinstance(sub, torch.Tensor):
+            yield prefix + key, key, tree
+        else:
+            yield from reference_leaves(sub, period, f"{prefix}{key}/")
+
+
+def _nest(flat: Mapping[str, Any]) -> Dict:
     tree: Dict = {}
-    for path, names in jax_layout(state, period).items():
-        leaf = (np.stack([to_numpy(state[n]) for n in names])
-                if isinstance(names, list) else to_numpy(state[names]))
+    for path, leaf in flat.items():
         *parents, key = path.split("/")
         node = tree
         for part in parents:
             node = node.setdefault(part, {})
         node[key] = leaf
     return tree
+
+
+def _tree_to_jax(tree: Mapping, period: int) -> Dict:
+    flat = {}
+    for path, names, src in reference_leaves(tree, period):
+        flat[path] = (np.stack([to_numpy(src[n]) for n in names])
+                      if isinstance(names, list) else to_numpy(src[names]))
+    return _nest(flat)
+
+
+def params_to_jax(state: Mapping[str, torch.Tensor], period: int) -> Dict:
+    """A port state dict as the reference's nested tree of numpy arrays
+    (see ``jax_layout``; bf16 as raw ``uint16`` bits)."""
+    return _tree_to_jax(state, period)
+
+
+def opt_state_to_jax(state: Mapping[str, Any], period: int) -> Dict:
+    """A port optimizer state (AdamW, Adafactor or 8-bit AdamW) as the
+    reference's nested tree of numpy arrays."""
+    return _tree_to_jax(state, period)
+
+
+def _flat_paths(tree: Mapping, prefix: str = "") -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            out.update(_flat_paths(val, f"{prefix}{key}/"))
+        else:
+            out[prefix + key] = val
+    return out
+
+
+def opt_state_from_jax(np_state: Mapping[str, Any],
+                       params: Mapping[str, torch.Tensor], period: int
+                       ) -> Dict[str, Any]:
+    """The reference's optimizer state (nested dicts of numpy arrays) as the
+    port's, on the CPU.  ``params`` (the port's state dict, any device) and
+    ``period`` give the layout: a subtree whose leaves are the reference's
+    param paths is a moment (AdamW's ``m``/``v``) and is unstacked into a
+    state dict; one whose leaves sit one level below a param path is kept
+    per reference leaf."""
+    paths = set(jax_layout(params, period))
+    out: Dict[str, Any] = {}
+    for key, sub in np_state.items():
+        if not isinstance(sub, dict):
+            out[key] = to_torch(sub)
+            continue
+        flat = _flat_paths(sub)
+        if set(flat) <= paths:
+            out[key] = params_from_jax(sub)
+            continue
+        per_leaf: Dict[str, Dict[str, torch.Tensor]] = {}
+        for path, arr in flat.items():
+            leaf, field = path.rsplit("/", 1)
+            if leaf not in paths:
+                raise KeyError(f"optimizer state {key}/{path}: {leaf!r} is no "
+                               "parameter of this model")
+            per_leaf.setdefault(leaf, {})[field] = to_torch(arr)
+        out[key] = per_leaf
+    return out

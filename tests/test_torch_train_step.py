@@ -92,8 +92,12 @@ def test_adamw_reduces_quadratic():
 
 @pytest.mark.parametrize("name", ["adafactor", "adamw8bit"])
 def test_unported_optimizers_raise(name):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        make_optimizer(OptimizerConfig(name=name))
+    """Both are ported now (held to the JAX package in
+    tests/test_torch_optimizers.py): make_optimizer builds them, and only an
+    unknown name raises."""
+    assert make_optimizer(OptimizerConfig(name=name)).cfg.name == name
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        make_optimizer(OptimizerConfig(name=name + "-x"))
 
 
 def test_adamw_update_matches_reference_arithmetic():
