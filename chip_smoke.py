@@ -114,7 +114,20 @@ Phases (any failure exits non-zero before the last line is printed):
    layer group; (e) ``moe_apply_shardmap`` against ``moe_apply`` on one
    mixtral-8x22b MoE layer at full width, fp32, on the (1, 1) mesh, within
    1e-5.  Prints ``train7``, ``optimizers``, ``remat`` and ``moe_shardmap``
-   lines.
+   lines;
+8. the dry-run (``repro_torch.launch.dryrun``) in a subprocess of its own,
+   since phase 7's process has held an NCCL group: (a) ``run_cell_roofline``
+   of gemma2-9b at train_4k on the fake 16 x 16 production mesh (a fake
+   process group of 256 ranks, the mesh claiming ``cuda``) under
+   ``resolve_layout(..., "auto")``, at full width; (b) ``run_cell`` of phase
+   7's own layout: gemma2-9b at full width and depth on the one-rank "data"
+   mesh, 1 x 4096 tokens, Adafactor.  The traces run on ``meta`` shards and
+   launch no kernel.  Prints (a)'s roofline terms and, beside phase 7's
+   Adafactor run, (b)'s peak estimate against the measured
+   ``max_memory_allocated`` (which it must match within 15 %), its per-device
+   FLOPs over the measured ``step_ms`` as TFLOP/s, and its bound against
+   ``step_ms``, each line with the card's name and power limit; fails if a
+   cell's status is not "ok".
 
 With ``--profile``, phases 3, 4, 4b and 4c also trace one prefill of their
 first measured wave and 8 decode steps under ``torch.profiler`` and print
@@ -1445,7 +1458,8 @@ def train_production(torch, opt_name: str, profiling: bool = False) -> dict:
            "losses": losses, "step_ms_each": [x * 1e3 for x in step_s],
            "step_ms": statistics.median(step_s[1:]) * 1e3,
            "tokens_per_s": PROD_BATCH * shape.seq_len * (len(step_s) - 1) / sum(step_s[1:]),
-           "peak_mem_gib": peak / 2**30, "opt_state_bytes": state_bytes,
+           "peak_mem_gib": peak / 2**30, "peak_bytes": peak,
+           "opt_state_bytes": state_bytes,
            "param_bytes": tensors_bytes(params), "build_s": build_s}
     log("train7 " + json.dumps({"train_production": out}))
     del model, params, opt_state, step_fn, feed
@@ -1629,7 +1643,102 @@ def production_phase(torch, profiling: bool) -> dict:
     return runs
 
 
+# Phase 8: the dry-run of phase 7's model, in a subprocess.
+DRYRUN_TIMEOUT_S = 400
+PEAK_ESTIMATE_TOL = 0.15
+
+
+def dryrun_child() -> None:
+    """Phase 8's subprocess: (a) and (b) of the module docstring, printed as
+    one JSON line."""
+    import torch
+    sys.path.insert(0, str(SRC))
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
+    from repro_torch.launch.presets import resolve_layout
+    from repro_torch.launch.specs import train_config_for
+
+    if not torch.cuda.is_available():
+        fail("the dry-run's mesh claims cuda: no CUDA runtime")
+    cfg, shape = get_config(PROD_ARCH), SHAPES[PROD_SHAPE]
+    out = {}
+    t0 = time.perf_counter()
+    with dryrun.fake_process_group(256):
+        mesh = make_production_mesh(device_type="cuda")
+        rules, rt_over, _ = resolve_layout(cfg, shape, mesh, "auto")
+        out["a"] = dryrun.run_cell_roofline(PROD_ARCH, PROD_SHAPE, mesh, rules=rules,
+                                            rt_overrides=rt_over)
+    out["a"]["s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with dryrun.fake_process_group(1):
+        mesh = make_local_mesh("cuda")
+        rules, rt_over, tc_over = resolve_layout(cfg, shape, mesh, "auto")
+        policy = train_config_for(cfg, shape, mesh.size(), **PROD_OPT_OVERRIDES)
+        tc_over = dict(tc_over, optimizer=dataclasses.replace(policy.optimizer,
+                                                              name="adafactor"))
+        out["b"] = dryrun.run_cell(
+            PROD_ARCH, PROD_SHAPE, mesh, rules=rules, rt_overrides=rt_over,
+            tc_overrides=tc_over,
+            shape=dataclasses.replace(shape, global_batch=PROD_BATCH))
+    out["b"]["s"] = time.perf_counter() - t0
+    print(json.dumps(out), flush=True)
+
+
+def dryrun_phase(card: str, prod: dict) -> dict:
+    """Phase 8 (see the module docstring); ``prod`` is phase 7's Adafactor
+    run."""
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                               "--dryrun-child"], capture_output=True, text=True,
+                              timeout=DRYRUN_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        fail(f"phase 8's dry-run did not finish in {DRYRUN_TIMEOUT_S} s")
+    elapsed = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"phase 8's dry-run exited {proc.returncode}: {proc.stderr[-3000:]}")
+    recs = json.loads(proc.stdout.strip().splitlines()[-1])
+    for key, rec in recs.items():
+        if rec["status"] != "ok":
+            fail(f"phase 8 ({key}) {rec['arch']} x {rec['shape']} on {rec['mesh']}: "
+                 f"{rec['status']}: {rec.get('error')}\n{rec.get('traceback', '')}")
+    a, b = recs["a"], recs["b"]
+    log("dryrun8a " + json.dumps({
+        "card": card, "cell": f"{a['arch']} x {a['shape']} on {a['mesh']}",
+        "layout": "auto", "method": a["method"], "hlo_flops": a["hlo_flops"],
+        "hlo_bytes": a["hlo_bytes"], "wire_bytes": a["wire_bytes"],
+        "roofline": a["roofline"], "useful_flops_ratio": a.get("useful_flops_ratio"),
+        "roofline_fraction": a.get("roofline_fraction"),
+        "coll_counts": a["points"][-1]["coll_counts"], "s": a["s"]}))
+    step_s = prod["step_ms"] / 1e3
+    measured = prod["peak_bytes"]
+    estimate = b["memory"]["peak_estimate_bytes"]
+    report = {
+        "card": card, "cell": f"{b['arch']} x {b['shape']} on the one-rank 'data' mesh, "
+                              f"{PROD_BATCH} x 4096 tokens, {b['optimizer']}",
+        "memory": b["memory"], "peak_estimate_bytes": estimate,
+        "measured_max_memory_allocated": measured,
+        "peak_estimate_over_measured": estimate / measured,
+        "hlo_flops": b["hlo_flops"], "model_flops_per_device": b["model_flops_per_device"],
+        "measured_step_ms": prod["step_ms"],
+        "achieved_tflops": b["hlo_flops"] / step_s / 1e12,
+        "achieved_model_tflops": b["model_flops_per_device"] / step_s / 1e12,
+        "bound_s": b["roofline"]["bound_s"], "bound_over_step": b["roofline"]["bound_s"] / step_s,
+        "roofline": b["roofline"], "collectives": b["collectives"],
+        "lower_s": b["lower_s"], "trace_s": b["compile_s"], "s": b["s"],
+        "phase_s": elapsed}
+    log("dryrun8b " + json.dumps(report))
+    if abs(estimate - measured) > PEAK_ESTIMATE_TOL * measured:
+        fail(f"phase 8 (b): the peak estimate {estimate} is not within "
+             f"{PEAK_ESTIMATE_TOL:.0%} of phase 7's max_memory_allocated {measured}")
+    return report
+
+
 def main() -> None:
+    if "--dryrun-child" in sys.argv[1:]:
+        dryrun_child()
+        return
     if not (SRC / "repro_torch").is_dir():
         fail(f"the port's sources are missing: no {SRC / 'repro_torch'}")
     # Phase 6 trains with deterministic algorithms, and cuBLAS reads its
@@ -1795,8 +1904,11 @@ def main() -> None:
 
     log(f"phase 6 done at {time.perf_counter() - t_start:.1f} s")
     # 7. train gemma2-9b at full width and depth under the launch policies -------
-    production_phase(torch, profiling)
+    prod = production_phase(torch, profiling)
     log(f"phase 7 done at {time.perf_counter() - t_start:.1f} s")
+    # 8. the dry-run of phase 7's cell and of its 16 x 16 production mesh -------
+    dryrun_phase(card, prod["adafactor"])
+    log(f"phase 8 done at {time.perf_counter() - t_start:.1f} s")
 
     # The main path's largest call of each kernel (flash_fwd and ssd_fwd,
     # off the main path, at the serving shape in fp32).  flash_fwd's and

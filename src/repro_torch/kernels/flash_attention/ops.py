@@ -5,6 +5,9 @@ kernel's plain version, :func:`_flash_chunked`, for CPU tensors.  Nothing
 falls back: a CUDA tensor under ``"cuda"`` or ``"auto"`` launches the kernel
 or raises.  ``"ref"`` is :func:`attention_reference`, which materialises the
 scores.  The kernel's launch count is ``kernel.flash_cuda.launches``.
+DTensor inputs run per shard (:func:`repro_torch.kernels._local.per_shard`):
+the batch where q shards it, the heads over the other mesh dims where both
+head counts divide (K/V are repeated to the q heads where only Hq divides).
 
 Any Sq and Sk are taken, as the serving engine's padded waves need: the
 kernels tile by their own sizes and mask ragged tiles, and the plain version
@@ -18,6 +21,7 @@ from typing import Optional
 
 import torch
 
+from .._local import is_dtensor, per_shard, shard_layout
 from .ref import NEG_INF, attention_reference
 
 __all__ = ["flash_attention"]
@@ -39,6 +43,11 @@ def flash_attention(
     block_q: int = 128,
     block_k: int = 128,
 ) -> torch.Tensor:
+    if is_dtensor(q) or is_dtensor(k):
+        return _flash_per_shard(q, k, v, q_segments, kv_segments, causal=causal,
+                                window=window, softcap=softcap, q_offset=q_offset,
+                                scale=scale, impl=impl, block_q=block_q,
+                                block_k=block_k)
     common = dict(causal=causal, window=window, softcap=softcap,
                   q_segments=q_segments, kv_segments=kv_segments,
                   q_offset=q_offset, scale=scale)
@@ -52,6 +61,36 @@ def flash_attention(
         from .kernel import flash_cuda        # builds the kernel on first use
         return flash_cuda(q, k, v, **common)
     return _flash_chunked(q, k, v, block_q=block_q, block_k=block_k, **common)
+
+
+QKV_ROLES = ("batch", None, "heads", None)
+
+
+def gqa_per_shard(q, k, v):
+    """(k, v) as per-shard attention takes them: repeated to the q heads
+    when the q heads can be sharded over a mesh dim that the KV heads do not
+    divide (each rank then holds the KV heads of its own q heads)."""
+    Hq, Hkv = q.shape[2], k.shape[2]
+    _, with_kv = shard_layout(q, QKV_ROLES, (Hq, Hkv))
+    _, q_only = shard_layout(q, QKV_ROLES, (Hq,))
+    if Hq != Hkv and q_only.count("heads") > with_kv.count("heads"):
+        k = k.repeat_interleave(Hq // Hkv, dim=2)
+        v = v.repeat_interleave(Hq // Hkv, dim=2)
+    return k, v
+
+
+def _flash_per_shard(q, k, v, q_segments, kv_segments, **kw):
+    def local(q, k, v, q_segments, kv_segments):
+        return flash_attention(q, k, v, q_segments=q_segments,
+                               kv_segments=kv_segments, **kw)
+
+    k, v = gqa_per_shard(q, k, v)
+    seg = ("batch", None)
+    return per_shard(local, (q, k, v, q_segments, kv_segments),
+                     (QKV_ROLES, QKV_ROLES, QKV_ROLES,
+                      seg if q_segments is not None else None,
+                      seg if kv_segments is not None else None),
+                     QKV_ROLES, heads=(q.shape[2], k.shape[2]))
 
 
 def _flash_chunked(

@@ -4,6 +4,9 @@
 kernel's plain version, :func:`_rglru_scan`, for CPU tensors.  Nothing falls
 back: a CUDA tensor under ``"cuda"`` or ``"auto"`` launches the kernel or
 raises.  The kernel's launch count is ``kernel.rglru_cuda.launches``.
+DTensor inputs run per shard (:func:`repro_torch.kernels._local.per_shard`):
+the batch where x shards it, the channels over the other mesh dims where
+they divide.
 
 :func:`_rglru_chunked` repeats the kernel's blocking and its evaluation of
 1 - a^2 (chunk aggregates, the chained look-back, the apply pass) in plain
@@ -17,6 +20,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from .._local import is_dtensor, per_shard
 from .ref import RGLRU_C, _gates, rglru_reference, rglru_step_reference
 
 __all__ = ["rglru", "rglru_step"]
@@ -35,6 +39,13 @@ def rglru(
     the CUDA kernel scans in chunks of its own (``kernel.kernel_chunk()``).
     (The reference's ``chunk`` argument sizes its Pallas blocks, and its
     kernel route asserts S % chunk == 0; no route here has such a block.)"""
+    if is_dtensor(x):
+        def local(x, r, i, lam, initial_h):
+            return rglru(x, r, i, lam, initial_h, impl=impl)
+
+        return per_shard(local, (x, r, i, lam, initial_h),
+                         (_X, _X, _X, ("heads",), _H if initial_h is not None else None),
+                         [_X, _H], heads=(x.shape[2],))
     if impl == "auto":
         impl = "cuda" if x.is_cuda else "scan"
     if impl == "ref":
@@ -47,8 +58,16 @@ def rglru(
     return rglru_cuda(x, r, i, lam, initial_h)
 
 
+_X = ("batch", None, "heads")                   # (B, S, W)
+_H = ("batch", "heads")                         # (B, W)
+
+
 def rglru_step(h, x_t, r_t, i_t, lam):
     """Single-token decode step (plain torch; the op is tiny)."""
+    if is_dtensor(x_t) or is_dtensor(h):
+        return per_shard(rglru_step_reference, (h, x_t, r_t, i_t, lam),
+                         (_H, _H, _H, _H, ("heads",)), [_H, _H],
+                         heads=(x_t.shape[1],), anchor=1)
     return rglru_step_reference(h, x_t, r_t, i_t, lam)
 
 

@@ -4,7 +4,9 @@
 picks it by dtype and shape) and runs the kernels' plain version,
 :func:`_ssd_chunked`, for CPU tensors.  Nothing falls back: a CUDA tensor
 under ``"cuda"`` or ``"auto"`` launches a kernel or raises.  The launch counts
-are ``kernel.ssd_cuda.launches`` and ``.wgmma_launches``.
+are ``kernel.ssd_cuda.launches`` and ``.wgmma_launches``.  DTensor inputs
+run per shard (:func:`repro_torch.kernels._local.per_shard`): the batch where
+x shards it, the heads over the other mesh dims where they divide.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from .._local import is_dtensor, per_shard
 from .ref import ssd_reference, ssd_step_reference
 
 __all__ = ["ssd", "ssd_step"]
@@ -29,6 +32,13 @@ def ssd(
     impl: str = "auto",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunked state-space duality scan.  Returns (y, final_state)."""
+    if is_dtensor(x):
+        def local(x, a, B_mat, C_mat, initial_state):
+            return ssd(x, a, B_mat, C_mat, initial_state, chunk=chunk, impl=impl)
+
+        return per_shard(local, (x, a, B_mat, C_mat, initial_state),
+                         (_X, _A, _BC, _BC, _STATE if initial_state is not None else None),
+                         [_X, _STATE], heads=(x.shape[2],))
     if impl == "auto":
         impl = "cuda" if x.is_cuda else "chunked"
     if impl == "ref":
@@ -44,8 +54,21 @@ def ssd(
     return _ssd_chunked(x, a, B_mat, C_mat, initial_state, chunk=chunk)
 
 
+_X = ("batch", None, "heads", None)             # (B, S, H, P)
+_A = ("batch", None, "heads")                   # (B, S, H)
+_BC = ("batch", None, None)                     # (B, S, N)
+_STATE = ("batch", "heads", None, None)         # (B, H, P, N)
+_X_T = ("batch", "heads", None)                 # (B, H, P): one step's x
+_A_T = ("batch", "heads")                       # (B, H)
+_BC_T = ("batch", None)                         # (B, N)
+
+
 def ssd_step(state, x_t, a_t, b_t, c_t):
     """Single-token decode step (plain torch; the op is tiny)."""
+    if is_dtensor(x_t) or is_dtensor(state):
+        return per_shard(ssd_step_reference, (state, x_t, a_t, b_t, c_t),
+                         (_STATE, _X_T, _A_T, _BC_T, _BC_T), [_X_T, _STATE],
+                         heads=(x_t.shape[1],), anchor=1)
     return ssd_step_reference(state, x_t, a_t, b_t, c_t)
 
 

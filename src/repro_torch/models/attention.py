@@ -11,18 +11,24 @@ The module's parameters are an ``nn.ModuleDict`` of ``{"w", "b"?}``
 ``nn.ParameterDict``s under the reference's names (``wq``, ``wk``, ``wv``,
 ``wo``).  ``attn_decode`` writes the new token's K/V into the cache tensors
 in place (the reference returns updated copies); the cache dict it returns
-holds the same tensors.
+holds the same tensors.  With DTensor params and activations (the sharded
+step) the attention itself runs per shard: ``flash_attention`` and
+:func:`_decode_attend`'s scores and softmax go through
+:func:`repro_torch.kernels._local.per_shard`.
 """
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
 from ..configs.base import ModelConfig
+from ..kernels._local import is_dtensor, per_shard, split_dim
 from ..kernels.flash_attention import flash_attention
+from ..kernels.flash_attention.ops import QKV_ROLES, gqa_per_shard
 from .common import (Initializer, RuntimeConfig, apply_rope, dense_apply,
                      dense_init)
 
@@ -44,7 +50,7 @@ def attn_init(ini: Initializer, cfg: ModelConfig, dtype) -> nn.ModuleDict:
 
 def _project(p, x: torch.Tensor, n_heads: int, dh: int) -> torch.Tensor:
     B, S, _ = x.shape
-    return dense_apply(p, x).reshape(B, S, n_heads, dh)
+    return split_dim(dense_apply(p, x), -1, n_heads).reshape(B, S, n_heads, dh)
 
 
 def attn_apply(
@@ -163,18 +169,33 @@ def _decode_attend(params, q, k, v, valid, cfg: ModelConfig, dtype):
     """One query a row against k/v (B, L, Hkv, dh), keys masked by ``valid``
     (B, L); in fp32, then the output projection in ``dtype``."""
     B = q.shape[0]
-    Hq, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    Hq, dh = cfg.n_heads, cfg.head_dim
+    if is_dtensor(q) or is_dtensor(k):
+        k, v = gqa_per_shard(q, k, v)
+        out = per_shard(partial(_decode_core, softcap=cfg.attn_softcap),
+                        (q, k, v, valid), (QKV_ROLES, QKV_ROLES, QKV_ROLES,
+                                           ("batch", None)),
+                        QKV_ROLES, heads=(Hq, k.shape[2]))
+    else:
+        out = _decode_core(q, k, v, valid, softcap=cfg.attn_softcap)
+    out = out.reshape(B, 1, Hq * dh).to(dtype)
+    return out @ params["wo"]["w"].to(dtype)
+
+
+def _decode_core(q, k, v, valid, *, softcap):
+    """(B, 1, Hq, dh) attention output of one query a row, in fp32."""
+    B, _, Hq, dh = q.shape
+    Hkv = k.shape[2]
     group = Hq // Hkv
     qf = q.float() * (dh ** -0.5)
     s = _decode_scores(qf, k.float(), B, group, Hkv, dh)   # (B, Hkv, group, L)
-    if cfg.attn_softcap is not None:
-        s = cfg.attn_softcap * torch.tanh(s / cfg.attn_softcap)
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bngk,bknd->bngd", p, v.float())
     # (B, Hkv, group, dh) is already q-head order (h = n * group + g).
-    out = out.reshape(B, 1, Hq * dh).to(dtype)
-    return out @ params["wo"]["w"].to(dtype)
+    return out.reshape(B, 1, Hq, dh)
 
 
 def _decode_scores(qf, kf, B, group, Hkv, dh):

@@ -6,6 +6,10 @@ orientation; the apply functions are plain functions on tensors, as in the
 reference.  A model built on the ``meta`` device holds shapes and dtypes
 only (the counterpart of the reference's ``init_abstract``): the sharding
 rules read full-size shapes from it without memory.
+
+A model whose parameters :func:`repro_torch.train.sharding.shard_model` made
+DTensors runs sharded: each layer takes its parameters through
+:func:`on_use`, which gathers their FSDP shards.
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ from torch import nn
 
 __all__ = ["RuntimeConfig", "Initializer", "resolve_device", "rmsnorm",
            "layernorm", "norm_init", "norm_apply", "dense_init", "dense_apply",
-           "mlp_init", "mlp_apply", "apply_rope", "softcap"]
+           "mlp_init", "mlp_apply", "apply_rope", "softcap", "on_use"]
 
 
 @dataclass(frozen=True)
@@ -99,6 +103,22 @@ class Initializer:
 
     def ones(self, shape, dtype: torch.dtype) -> nn.Parameter:
         return nn.Parameter(torch.ones(shape, dtype=dtype, device=self.device))
+
+
+def on_use(p):
+    """Parameters as a layer's matmuls use them.  A sharded parameter (a
+    DTensor that ``shard_model`` gave an ``on_use`` layout: its spec with
+    the FSDP axes dropped) is redistributed to that layout, so its FSDP
+    shards are gathered on use and its gradient is reduce-scattered back; a
+    module of such parameters comes back as nested dicts of them.  Plain
+    parameters and modules come back as they are."""
+    if isinstance(p, torch.Tensor):
+        layout = getattr(p, "on_use", None)
+        return p if layout is None else p.redistribute(p.device_mesh, layout)
+    first = next(p.parameters(), None)
+    if getattr(first, "on_use", None) is None:
+        return p
+    return {k: on_use(v) for k, v in p.items()}
 
 
 # ---------------------------------------------------------------------------

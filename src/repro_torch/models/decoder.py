@@ -54,9 +54,10 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..configs.base import ModelConfig
+from ..kernels._local import is_dtensor
 from .attention import attn_apply, attn_decode, attn_init, init_kv_cache
 from .common import (Initializer, RuntimeConfig, mlp_apply, mlp_init,
-                     norm_apply, norm_init, resolve_device, softcap)
+                     norm_apply, norm_init, on_use, resolve_device, softcap)
 from .moe import moe_apply, moe_apply_shardmap, moe_decode, moe_init
 from .recurrent_block import init_rec_cache, rec_apply, rec_decode, rec_init
 from .ssm_block import init_ssm_cache, ssm_apply, ssm_decode, ssm_init
@@ -169,7 +170,7 @@ class DecoderLM(nn.Module):
 
     def _embed(self, tokens: torch.Tensor,
                frontend_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = self.embed[tokens].to(self.rt.compute_dtype)
+        x = embed_lookup(self.embed, tokens).to(self.rt.compute_dtype)
         if self.cfg.scale_embed:
             x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=x.dtype)
         if frontend_embeds is not None:
@@ -178,8 +179,8 @@ class DecoderLM(nn.Module):
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        x = norm_apply(self.final_norm, x, cfg.norm)
-        head = self.embed.T if cfg.tie_embeddings else self.lm_head
+        x = norm_apply(on_use(self.final_norm), x, cfg.norm)
+        head = on_use(self.embed).T if cfg.tie_embeddings else on_use(self.lm_head)
         logits = softcap((x @ head.to(x.dtype)).float(), cfg.final_softcap)
         if cfg.padded_vocab != cfg.vocab_size:
             iota = torch.arange(cfg.padded_vocab, device=logits.device)
@@ -213,6 +214,7 @@ class DecoderLM(nn.Module):
 
     def _apply_block(self, kind: str, p, x, *, positions, segments):
         cfg, rt = self.cfg, self.rt
+        p = on_use(p)
         h = norm_apply(p["norm1"], x, cfg.norm)
         if kind == "ssm":
             return x + ssm_apply(p["ssm"], h, cfg, rt)
@@ -268,8 +270,10 @@ class DecoderLM(nn.Module):
 
     def init_cache(self, batch: int) -> List[Dict]:
         """Allocate the decode cache, one dict per layer (window-bounded
-        layers allocate only the window)."""
-        return [self._init_block_cache(kind, batch) for kind in self.kinds]
+        layers allocate only the window); sharded per ``cache_specs`` when
+        the params are."""
+        cache = [self._init_block_cache(kind, batch) for kind in self.kinds]
+        return shard_cache(self, cache, batch)
 
     @torch.inference_mode()
     def prefill(self, tokens: torch.Tensor,
@@ -295,6 +299,7 @@ class DecoderLM(nn.Module):
 
     def _prefill_block(self, kind: str, p, x, cache, positions, segments=None):
         cfg, rt = self.cfg, self.rt
+        p = on_use(p)
         h = norm_apply(p["norm1"], x, cfg.norm)
         if kind == "ssm":
             y, state = ssm_apply(p["ssm"], h, cfg, rt, return_state=True)
@@ -330,6 +335,7 @@ class DecoderLM(nn.Module):
 
     def _decode_block(self, kind: str, p, x_t, cache, pos, context_start=None):
         cfg, rt = self.cfg, self.rt
+        p = on_use(p)
         h = norm_apply(p["norm1"], x_t, cfg.norm)
         if kind == "ssm":
             y, state = ssm_decode(p["ssm"], h, cache, cfg, rt)
@@ -343,18 +349,85 @@ class DecoderLM(nn.Module):
         return self._mlp_sublayer(p, x_t, mix, decode=True), state
 
 
+def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """The rows of ``embed`` for ``tokens``.  A sharded table is gathered on
+    use; where its vocab stays sharded, each rank looks up the tokens that
+    fall in its rows (zeros for the rest) and the result is a partial sum
+    over those mesh dims."""
+    embed = on_use(embed)
+    if not is_dtensor(embed):
+        return embed[tokens]
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = embed.device_mesh
+    vocab = [i for i, pl in enumerate(embed.placements) if pl.is_shard(0)]
+    if not vocab:
+        return torch.nn.functional.embedding(tokens, embed)
+    coord, index, n = mesh.get_coordinate(), 0, 1
+    for i in vocab:                    # this rank's block of rows, in mesh order
+        index, n = index * mesh.size(i) + coord[i], n * mesh.size(i)
+    rows = embed.shape[0] // n
+    lo = index * rows
+
+    def lookup(table, tok):
+        hit = (tok >= lo) & (tok < lo + rows)
+        out = table[torch.where(hit, tok - lo, 0)]
+        return torch.where(hit[..., None], out, torch.zeros((), dtype=out.dtype))
+
+    tok_pl = [Replicate() if i in vocab else pl for i, pl in enumerate(tokens.placements)]
+    out_pl = [Partial() if i in vocab else pl for i, pl in enumerate(tok_pl)]
+    grad_pl = [pl if i in vocab else (Partial() if tok_pl[i].is_shard() else Replicate())
+               for i, pl in enumerate(embed.placements)]
+    return local_map(lookup, out_placements=out_pl, in_placements=(
+        list(embed.placements), tok_pl), in_grad_placements=(grad_pl, tok_pl),
+        device_mesh=mesh, redistribute_inputs=True)(embed, tokens)
+
+
+def shard_cache(model, cache, batch: int):
+    """``cache`` as DTensors per ``cache_specs`` when ``model``'s params are
+    sharded (the rules of its ``act_sharding``), else as it is."""
+    if not is_dtensor(next(model.parameters())):
+        return cache
+    from ..train.sharding import cache_specs, shard_tree
+    rules = model.rt.act_sharding.rules
+    return shard_tree(cache, cache_specs(cache, rules, batch), rules.mesh)
+
+
 def xent_loss(logits: torch.Tensor, labels: torch.Tensor):
     """Masked cross entropy, the mean over positions whose label is >= 0.
 
     The reference extracts the label logit with a one-hot reduction (it
     keeps a vocab-sharded axis sharded); on one device a gather computes the
-    same value.
+    same value, and logits with a sharded vocab take
+    :func:`_vocab_parallel_terms`.
     """
     mask = labels >= 0
     safe = torch.clamp(labels, min=0).long()
-    lse = torch.logsumexp(logits, dim=-1)
-    label_logit = torch.gather(logits, -1, safe[..., None])[..., 0]
+    if is_dtensor(logits) and any(pl.is_shard(logits.dim() - 1)
+                                  for pl in logits.placements):
+        lse, label_logit = _vocab_parallel_terms(logits, safe)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        label_logit = torch.gather(logits, -1, safe[..., None])[..., 0]
     nll = lse - label_logit
     denom = torch.clamp(mask.sum(), min=1)
     loss = torch.where(mask, nll, 0.0).sum() / denom
     return loss, {"loss": loss, "n_tokens": denom}
+
+
+def _vocab_parallel_terms(logits, labels):
+    """(logsumexp, label logit) of DTensor logits whose vocab dim may be
+    sharded, without gathering it: the max, the sum of exponentials and the
+    one-hot reduction each reduce over the local vocab first."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh, last = logits.device_mesh, logits.dim() - 1
+    iota = DTensor.from_local(torch.arange(logits.shape[-1], device=labels.device), mesh,
+                              [Replicate()] * mesh.ndim, run_check=False)
+    iota = iota.redistribute(mesh, [Shard(0) if pl.is_shard(last) else Replicate()
+                                    for pl in logits.placements])
+    m = logits.amax(dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
+    label_logit = torch.where(labels[..., None] == iota, logits, 0.0).sum(dim=-1)
+    return lse, label_logit

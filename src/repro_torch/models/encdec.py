@@ -30,10 +30,13 @@ import torch
 from torch import nn
 
 from ..configs.base import ModelConfig
+from ..kernels._local import is_dtensor, per_shard, split_dim
+from ..kernels.flash_attention.ops import QKV_ROLES, gqa_per_shard
 from .attention import attn_apply, attn_decode, attn_init, init_kv_cache
 from .common import (Initializer, RuntimeConfig, dense_apply, mlp_apply,
-                     mlp_init, norm_apply, norm_init, resolve_device, softcap)
-from .decoder import check_remat, remat_call, xent_loss
+                     mlp_init, norm_apply, norm_init, on_use, resolve_device,
+                     softcap)
+from .decoder import check_remat, embed_lookup, remat_call, shard_cache, xent_loss
 
 __all__ = ["EncDecLM"]
 
@@ -89,6 +92,7 @@ class EncDecLM(nn.Module):
 
     def _enc_block(self, p, x: torch.Tensor) -> torch.Tensor:
         cfg, rt = self.cfg, self.rt
+        p = on_use(p)
         x = x + attn_apply(p["attn"], norm_apply(p["norm1"], x, cfg.norm), cfg, rt,
                            causal=False)
         return x + mlp_apply(p["mlp"], norm_apply(p["norm2"], x, cfg.norm), cfg.act)
@@ -97,12 +101,13 @@ class EncDecLM(nn.Module):
         """frames: (B, S_enc, D) precomputed frontend embeddings."""
         x = self._layers(self._enc_block, self.encoder,
                          frames.to(self.rt.compute_dtype))
-        return norm_apply(self.enc_final_norm, x, self.cfg.norm)
+        return norm_apply(on_use(self.enc_final_norm), x, self.cfg.norm)
 
     # ------------------------------------------------------------------ train
 
     def _dec_block(self, p, x: torch.Tensor, enc_out: torch.Tensor) -> torch.Tensor:
         cfg, rt = self.cfg, self.rt
+        p = on_use(p)
         x = x + attn_apply(p["self_attn"], norm_apply(p["norm1"], x, cfg.norm), cfg,
                            rt, causal=True)
         x = x + attn_apply(p["cross_attn"], norm_apply(p["norm2"], x, cfg.norm), cfg,
@@ -113,12 +118,13 @@ class EncDecLM(nn.Module):
         return self._layers(self._dec_block, self.decoder, x, enc_out)
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.embed[tokens].to(self.rt.compute_dtype)
+        return embed_lookup(self.embed, tokens).to(self.rt.compute_dtype)
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        x = norm_apply(self.final_norm, x, cfg.norm)
-        logits = softcap((x @ self.lm_head.to(x.dtype)).float(), cfg.final_softcap)
+        x = norm_apply(on_use(self.final_norm), x, cfg.norm)
+        logits = softcap((x @ on_use(self.lm_head).to(x.dtype)).float(),
+                         cfg.final_softcap)
         if cfg.padded_vocab != cfg.vocab_size:
             iota = torch.arange(cfg.padded_vocab, device=logits.device)
             logits = torch.where(iota < cfg.vocab_size, logits, -1e30)
@@ -142,8 +148,9 @@ class EncDecLM(nn.Module):
         if length <= 0:
             raise ValueError("the decoder's self-attention needs a KV cache: set "
                              "RuntimeConfig.max_cache_len > 0")
-        return [init_kv_cache(self.cfg, batch, length, self.rt.compute_dtype,
-                              self.device) for _ in range(self.cfg.n_layers)]
+        return shard_cache(self, [init_kv_cache(self.cfg, batch, length,
+                                                self.rt.compute_dtype, self.device)
+                                  for _ in range(self.cfg.n_layers)], batch)
 
     def init_cache(self, batch: int, enc_out: Optional[torch.Tensor] = None) -> Dict:
         """Self-attention KV caches, plus each layer's cross K/V of
@@ -157,9 +164,10 @@ class EncDecLM(nn.Module):
         """Each decoder layer's (K, V) of the encoder output."""
         B, S, _ = enc_out.shape
         Hkv, dh = self.cfg.n_kv_heads, self.cfg.head_dim
-        return [{"k": dense_apply(p["cross_attn"]["wk"], enc_out).reshape(B, S, Hkv, dh),
-                 "v": dense_apply(p["cross_attn"]["wv"], enc_out).reshape(B, S, Hkv, dh)}
-                for p in self.decoder]
+        cross = [on_use(p["cross_attn"]) for p in self.decoder]
+        return [{"k": split_dim(dense_apply(p["wk"], enc_out), -1, Hkv).reshape(B, S, Hkv, dh),
+                 "v": split_dim(dense_apply(p["wv"], enc_out), -1, Hkv).reshape(B, S, Hkv, dh)}
+                for p in cross]
 
     @torch.inference_mode()
     def prefill(self, frames: torch.Tensor, tokens: torch.Tensor):
@@ -176,7 +184,7 @@ class EncDecLM(nn.Module):
                              f"{self_cache[0]['k'].shape[1]} slots: raise "
                              "RuntimeConfig.max_cache_len")
         cross = self._cross_kv(enc_out)
-        for p, sc, cr in zip(self.decoder, self_cache, cross):
+        for p, sc, cr in zip(map(on_use, self.decoder), self_cache, cross):
             mix, (k, v) = attn_apply(p["self_attn"], norm_apply(p["norm1"], x, cfg.norm),
                                      cfg, rt, positions=positions, causal=True,
                                      return_kv=True)
@@ -195,7 +203,7 @@ class EncDecLM(nn.Module):
         cfg, rt = self.cfg, self.rt
         x = self._embed(token)
         new_self = []
-        for p, sc, cr in zip(self.decoder, cache["self"], cache["cross"]):
+        for p, sc, cr in zip(map(on_use, self.decoder), cache["self"], cache["cross"]):
             mix, sc = attn_decode(p["self_attn"], norm_apply(p["norm1"], x, cfg.norm),
                                   sc, pos, cfg, rt)
             new_self.append(sc)
@@ -211,10 +219,24 @@ def _cross_apply(p, x: torch.Tensor, cross_kv: Dict[str, torch.Tensor],
     """Cross-attention against precomputed encoder K/V (prefill and decode),
     in fp32 with a full softmax, as the reference computes it."""
     B, S, _ = x.shape
-    Hq, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = dense_apply(p["wq"], x).reshape(B, S, Hq, dh)
+    Hq, dh = cfg.n_heads, cfg.head_dim
+    q = split_dim(dense_apply(p["wq"], x), -1, Hq).reshape(B, S, Hq, dh)
     k, v = cross_kv["k"], cross_kv["v"]
+    if is_dtensor(q):
+        k, v = gqa_per_shard(q, k, v)
+        out = per_shard(_cross_core, (q, k, v), (QKV_ROLES,) * 3, QKV_ROLES,
+                        heads=(Hq, k.shape[2]))
+    else:
+        out = _cross_core(q, k, v)
+    return out.reshape(B, S, Hq * dh).to(x.dtype) @ p["wo"]["w"].to(x.dtype)
+
+
+def _cross_core(q, k, v):
+    """Unmasked attention of q (B, S, Hq, dh) on k/v (B, Sk, Hkv, dh) in
+    fp32: (B, S, Hq, dh)."""
+    B, S, Hq, dh = q.shape
+    Hkv = k.shape[2]
     q5 = (q.float() * (dh ** -0.5)).reshape(B, S, Hkv, Hq // Hkv, dh)
     s = torch.einsum("bsngd,bknd->bsngk", q5, k.float())
     out = torch.einsum("bsngk,bknd->bsngd", torch.softmax(s, dim=-1), v.float())
-    return out.reshape(B, S, Hq * dh).to(x.dtype) @ p["wo"]["w"].to(x.dtype)
+    return out.reshape(B, S, Hq, dh)

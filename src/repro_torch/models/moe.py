@@ -18,6 +18,15 @@ the top-k gate weights; nothing is dropped, so prefill and decode agree with
 ``moe_apply_shardmap`` is expert parallelism with explicit collectives on
 the "data"/"model" sub-meshes of ``rt.act_sharding.rules.mesh``, the
 reference's ``shard_map`` version, as ``torch.distributed`` all-to-alls.
+
+Sharded (DTensor) runs: ``moe_apply`` and ``moe_decode`` run per shard
+(:func:`repro_torch.kernels._local.per_shard`), tokens on the batch's mesh
+dims and the experts' d_ff over the others where it divides, each rank's
+output a partial sum there (tensor-parallel experts); ``moe_apply`` raises
+where a shard's token groups would not be the global batch's.
+``moe_apply_shardmap`` takes each rank's rows and its experts' weights (the
+expert axis of their ``on_use`` layout) as local tensors and gives their
+gradients back as partial sums over the mesh dims that split the tokens.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ModelConfig
+from ..kernels._local import is_dtensor, per_shard, shard_layout
 from .common import Initializer, RuntimeConfig
 
 __all__ = ["moe_init", "moe_apply", "moe_apply_shardmap", "moe_decode",
@@ -96,9 +106,44 @@ def _dispatch_combine(gate: torch.Tensor, idx: torch.Tensor, E: int, C: int):
     return dispatch, combine
 
 
+_TOKENS = ("batch", None, None)                  # x, y: (B, S, D)
+_W_IN = (None, None, "heads")                   # wi, wg: (E, D, F)
+_W_OUT = (None, "heads", None)                  # wo: (E, F, D)
+
+
+def _moe_per_shard(fn, p, x: torch.Tensor, cfg: ModelConfig, with_aux: bool):
+    """``fn(p, x)`` per shard (see the module docstring); the aux loss, the
+    mean over each shard's groups, becomes the mean over the shards."""
+    _, layout = shard_layout(x, _TOKENS, (cfg.moe_d_ff,))
+    n = 1
+    for i, role in enumerate(layout):
+        n *= x.device_mesh.size(i) if role == "batch" else 1
+
+    def local(x, router, wi, wg, wo):
+        out = fn({"router": router, "wi": wi, "wg": wg, "wo": wo}, x)
+        return (out[0], out[1] / n) if with_aux else out
+
+    args = (x, p["router"], p["wi"], p["wg"], p["wo"])
+    roles = (_TOKENS, (None, None), _W_IN, _W_IN, _W_OUT)
+    if with_aux:
+        return per_shard(local, args, roles, [_TOKENS, ()], heads=(cfg.moe_d_ff,),
+                         partial_over=[("heads",), ("batch",)])
+    return per_shard(local, args, roles, _TOKENS, heads=(cfg.moe_d_ff,),
+                     partial_over=[("heads",)])
+
+
 def moe_apply(p, x: torch.Tensor, cfg: ModelConfig, rt: RuntimeConfig
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (y, aux_loss).  Capacity-based dispatch."""
+    if is_dtensor(x):
+        n_local = x.shape[0] * x.shape[1]
+        for i, pl in enumerate(x.placements):
+            n_local //= x.device_mesh.size(i) if pl.is_shard(0) else 1
+        if moe_groups(n_local, cfg, rt)[1] != moe_groups(x.shape[0] * x.shape[1], cfg, rt)[1]:
+            raise ValueError(
+                f"a shard's {n_local} tokens group otherwise than the batch's "
+                f"{x.shape[0] * x.shape[1]} (moe_group_size {rt.moe_group_size})")
+        return _moe_per_shard(lambda q, y: moe_apply(q, y, cfg, rt), p, x, cfg, True)
     B, S, D = x.shape
     E = cfg.n_experts
     G, g, C = moe_groups(B * S, cfg, rt)
@@ -199,7 +244,42 @@ def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     return out
 
 
-def moe_apply_shardmap(p, x: torch.Tensor, cfg: ModelConfig, rt: RuntimeConfig
+def _shardmap_dtensor(p, x, cfg: ModelConfig, rt: RuntimeConfig):
+    """``moe_apply_shardmap`` on DTensors: x's rows on the batch axes and
+    the experts on the expert axis, as local tensors (see the module
+    docstring)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    rules = rt.act_sharding.rules
+    mesh = rules.mesh
+    names = mesh.mesh_dim_names
+    b_axes = rules.batch_spec_axes(x.shape[0]) or ()
+    x_pl = tuple(Shard(0) if a in b_axes else Replicate() for a in names)
+    xl = x.redistribute(mesh, x_pl).to_local(grad_placements=x_pl)
+    tp = rules.tp_axis
+    n_tp = rules.size(tp) if tp else 1
+    G = moe_groups(xl.shape[0] * xl.shape[1], cfg, rt)[0]
+    splits = set(b_axes) | ({tp} if tp and n_tp > 1 and G % n_tp == 0 else set())
+
+    def local(w, keep):
+        w = w.redistribute(mesh, tuple(Shard(0) if a == keep else Replicate()
+                                       for a in names))
+        grad = tuple(pl if pl.is_shard() else (Partial() if a in splits else Replicate())
+                     for a, pl in zip(names, w.placements))
+        return w.to_local(grad_placements=grad)
+
+    ea = rules.expert_axis or "data"
+    lp = {"router": local(p["router"], None),
+          **{k: local(p[k], ea) for k in ("wi", "wg", "wo")}}
+    y, aux = moe_apply_shardmap(lp, xl, cfg, rt, local_experts=True)
+    y = DTensor.from_local(y, mesh, x_pl, run_check=False, shape=x.shape,
+                           stride=x.stride())
+    aux = DTensor.from_local(aux, mesh, (Replicate(),) * len(names), run_check=False)
+    return y, aux
+
+
+def moe_apply_shardmap(p, x: torch.Tensor, cfg: ModelConfig, rt: RuntimeConfig,
+                       *, local_experts: bool = False
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Expert parallelism with explicit collectives.
 
@@ -220,8 +300,12 @@ def moe_apply_shardmap(p, x: torch.Tensor, cfg: ModelConfig, rt: RuntimeConfig
     experts' and router's gradients are this rank's share, which the
     data-parallel reduction sums.  A batch that is not split over the
     expert axis raises (the reference routes each token once per expert
-    rank there, and its docstring's fallback does not exist).
+    rank there, and its docstring's fallback does not exist).  With
+    ``local_experts`` the expert weights are already this rank's E / n_ep.
+    DTensor inputs take :func:`_shardmap_dtensor`.
     """
+    if is_dtensor(x):
+        return _shardmap_dtensor(p, x, cfg, rt)
     rules = rt.act_sharding.rules
     mesh = rules.mesh
     ea = rules.expert_axis or "data"
@@ -244,7 +328,8 @@ def moe_apply_shardmap(p, x: torch.Tensor, cfg: ModelConfig, rt: RuntimeConfig
     ep_group = mesh.get_group(ea)
     E_local = E // n_ep
     e0 = mesh.get_local_rank(ea) * E_local
-    wi, wg, wo = (p[k][e0:e0 + E_local] for k in ("wi", "wg", "wo"))
+    wi, wg, wo = (p[k] if local_experts else p[k][e0:e0 + E_local]
+                  for k in ("wi", "wg", "wo"))
 
     G, gg, C = moe_groups(Bl * S, cfg, rt)
     xg = x.reshape(G, gg, D)
@@ -281,6 +366,8 @@ def moe_apply_shardmap(p, x: torch.Tensor, cfg: ModelConfig, rt: RuntimeConfig
 def moe_decode(p, x: torch.Tensor, cfg: ModelConfig, rt: RuntimeConfig
                ) -> torch.Tensor:
     """x: (B, 1, D).  Dense all-expert compute, top-k combine."""
+    if is_dtensor(x):
+        return _moe_per_shard(lambda q, y: moe_decode(q, y, cfg, rt), p, x, cfg, False)
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.experts_per_token
     gate, idx, _ = _route(p, x, cfg)                           # (B, 1, K)

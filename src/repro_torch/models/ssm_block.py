@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ModelConfig
+from ..kernels._local import split_dim
 from ..kernels.ssd import ssd, ssd_step
 from .common import Initializer, RuntimeConfig, rmsnorm
 
@@ -80,6 +81,7 @@ def ssm_apply(params, x: torch.Tensor, cfg: ModelConfig, rt: RuntimeConfig,
                                  params["conv_b"].to(x.dtype),
                                  xbc, conv_in_state)
     xs, Bm, Cm = torch.split(xbc, [Din, N, N], dim=-1)
+    xs = split_dim(xs, -1, H)
     dt, a = _gates(params, dt_raw)                        # (B,S,H)
 
     xh = xs.reshape(B, S, H, P) * dt[..., None].to(xs.dtype)
@@ -116,6 +118,7 @@ def ssm_decode(params, x_t: torch.Tensor, cache: Dict, cfg: ModelConfig,
                                  params["conv_b"].to(x_t.dtype),
                                  xbc, cache["conv"])
     xs, Bm, Cm = torch.split(xbc, [Din, N, N], dim=-1)
+    xs = split_dim(xs, -1, H)
     dt, a = _gates(params, dt_raw)                        # (B,1,H)
     xh = (xs.reshape(B, 1, H, P) * dt[..., None].to(xs.dtype))[:, 0]
     y, new_state = ssd_step(cache["ssd"], xh, a[:, 0], Bm[:, 0], Cm[:, 0])

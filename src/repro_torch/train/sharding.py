@@ -24,8 +24,18 @@ with ``axis_names`` and a name -> size ``shape`` (enough to evaluate the
 rules for a production mesh no process group holds).  :func:`named` turns a
 spec into DTensor placements on a DeviceMesh; :func:`constrain` and
 :class:`ActivationSharding` redistribute DTensors and hand plain tensors
-back as they are.  Executing params that are FSDP/TP-sharded waits for the
-dry-run slice (``launch/dryrun.py``); training here is data-parallel.
+back as they are.
+
+Sharded execution: :func:`shard_model` makes every parameter a DTensor with
+its spec's placements (each rank keeps its own piece; a ``meta`` model gets
+``meta`` pieces, shapes without memory, as the dry-run wants) and gives it
+an ``on_use`` layout, the spec with the FSDP axes dropped, which
+:func:`repro_torch.models.common.on_use` redistributes it to where a layer
+uses it ("gathered on use"); under ``moe_impl="shard_map"`` the experts'
+weights keep the expert axis (the reference's ``wi_spec = P(ea, None,
+None)``).  :func:`shard_tree` does the same for optimizer state, batches and
+caches.  The train step then runs on DTensors, and the mesh's placements
+do the data-parallel reduction (``train/step.py``).
 """
 
 from __future__ import annotations
@@ -39,7 +49,8 @@ from ..weights import jax_layout
 
 __all__ = ["ShardingRules", "param_specs", "batch_specs", "cache_specs",
            "opt_state_specs", "named", "constrain", "local_shard",
-           "from_local", "from_global",
+           "from_local", "from_global", "shard_model", "shard_tree",
+           "local_shape", "use_spec",
            "ActivationSharding", "Sharding", "mesh_axis_names", "mesh_shape"]
 
 Spec = Tuple[Any, ...]
@@ -323,6 +334,8 @@ class Sharding(NamedTuple):
 
 
 def _placements(mesh, spec: Sequence) -> Tuple[Any, ...]:
+    """One placement a mesh dim; a dim of one rank replicates (the same
+    layout, and DTensor will not reshape a dim sharded over it)."""
     from torch.distributed.tensor import Replicate, Shard
 
     where: Dict[str, int] = {}
@@ -330,7 +343,8 @@ def _placements(mesh, spec: Sequence) -> Tuple[Any, ...]:
         for a in (axis if isinstance(axis, tuple) else (axis,)):
             if a is not None:
                 where[a] = dim
-    return tuple(Shard(where[a]) if a in where else Replicate()
+    sizes = mesh_shape(mesh)
+    return tuple(Shard(where[a]) if a in where and sizes[a] > 1 else Replicate()
                  for a in mesh_axis_names(mesh))
 
 
@@ -373,6 +387,79 @@ def from_global(x: torch.Tensor, sharding: Sharding, device=None) -> Any:
     mesh's device type by default); no communication."""
     local = local_shard(x, sharding).to(device or sharding.mesh.device_type)
     return from_local(local, sharding, x.shape)
+
+
+def local_shape(shape, sharding: Sharding) -> Tuple[int, ...]:
+    """The shape of each rank's piece of a tensor of ``shape`` (the specs
+    shard a dim only where its mesh axes divide it)."""
+    out = list(shape)
+    for mdim, pl in enumerate(sharding.placements):
+        if pl.is_shard():
+            out[pl.dim] //= sharding.mesh.size(mdim)
+    return tuple(out)
+
+
+def shard_tensor(x: torch.Tensor, sharding: Sharding) -> Any:
+    """``x`` (the global tensor, the same on every rank) as a DTensor under
+    ``sharding``; a ``meta`` tensor gets a ``meta`` piece of the local
+    shape, any other keeps its device."""
+    if x.is_meta:
+        local = torch.empty(local_shape(x.shape, sharding), dtype=x.dtype,
+                            device="meta")
+    else:
+        local = local_shard(x, sharding).contiguous()
+    return from_local(local, sharding, x.shape)
+
+
+def shard_tree(tree, spec_tree, mesh):
+    """Every tensor of ``tree`` (dicts and lists of tensors) as a DTensor
+    with its spec in ``spec_tree``; 0-dim tensors (the optimizer's step, a
+    host scalar) stay as they are."""
+    if isinstance(tree, torch.Tensor):
+        if tree.dim() == 0:
+            return tree
+        return shard_tensor(tree, named(mesh, spec_tree))
+    if isinstance(tree, Mapping):
+        return {k: shard_tree(v, spec_tree[k], mesh) for k, v in tree.items()}
+    return [shard_tree(v, s, mesh) for v, s in zip(tree, spec_tree)]
+
+
+def use_spec(name: str, spec: Spec, rules: ShardingRules, moe_shard_map: bool) -> Spec:
+    """The layout a parameter is used in: ``spec`` with the FSDP axes
+    dropped (its TP axes kept); MoE expert weights under ``shard_map`` keep
+    only the expert axis on their expert dim."""
+    if moe_shard_map and re.search(r"moe\.(wi|wg|wo)$", name):
+        ea = rules.expert_axis
+        return (spec[0] if spec[0] == ea else None,) + (None,) * (len(spec) - 1)
+    fsdp = rules.fsdp_axis
+    drop = set(fsdp if isinstance(fsdp, tuple) else (fsdp,)) - {None}
+
+    def keep(axis):
+        names = tuple(a for a in (axis if isinstance(axis, tuple) else (axis,))
+                      if a is not None and a not in drop)
+        return names if len(names) > 1 else (names[0] if names else None)
+
+    return tuple(keep(a) for a in spec)
+
+
+def shard_model(model, rules: ShardingRules) -> Dict[str, Spec]:
+    """Make every parameter of ``model`` a DTensor on the rules' mesh with
+    its :func:`param_specs` placements, each rank keeping its piece (see the
+    module docstring); returns the specs.  ``model.rt.act_sharding`` should
+    hold the same rules, so that the activations follow them."""
+    from torch import nn
+
+    params = dict(model.named_parameters())
+    specs = param_specs(params, rules, len(model.pattern))
+    shard_map = getattr(model.rt, "moe_impl", None) == "shard_map"
+    for name, p in params.items():
+        new = nn.Parameter(shard_tensor(p.detach(), named(rules.mesh, specs[name])),
+                           requires_grad=p.requires_grad)
+        new.on_use = _placements(rules.mesh,
+                                 use_spec(name, specs[name], rules, shard_map))
+        owner, _, leaf = name.rpartition(".")
+        model.get_submodule(owner).register_parameter(leaf, new)
+    return specs
 
 
 def constrain(x, rules: ShardingRules, spec: Sequence):

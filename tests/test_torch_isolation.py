@@ -43,7 +43,11 @@ DISTRIBUTION_MODULES = ["repro_torch.train.optimizer", "repro_torch.train.shardi
                         "repro_torch.launch.mesh", "repro_torch.launch.specs",
                         "repro_torch.launch.presets", "repro_torch.launch.train",
                         "repro_torch.models.moe", "repro_torch.data.loader",
-                        "repro_torch.weights"]
+                        "repro_torch.weights", "repro_torch.launch.dryrun",
+                        "repro_torch.launch.hlo_analysis", "repro_torch.cli",
+                        "repro_torch.store", "repro_torch.store.remote.urls",
+                        "repro_torch.store.remote.http_backend",
+                        "repro_torch.store.remote.dev_server"]
 
 
 def test_every_module_imports_without_jax_or_repro():

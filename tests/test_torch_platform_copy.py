@@ -1,5 +1,6 @@
 """The port's copy of the platform (``repro_torch.core``,
-``repro_torch.platform``, ``repro_torch.data.components``) against the JAX
+``repro_torch.platform``, ``repro_torch.data.components``, the remote stores
+``repro_torch.store`` and the CLI ``repro_torch.cli``) against the JAX
 package's.
 
 The port imports nothing from ``repro``, so it carries these modules as its
@@ -23,7 +24,8 @@ pytest.importorskip("torch")
 ROOT = Path(__file__).resolve().parents[1]
 SRC = ROOT / "src" / "repro"
 COPIED = sorted(str(p.relative_to(SRC)) for p in (SRC / "core").glob("*.py")) + [
-    "platform.py", "data/components.py"]
+    "platform.py", "data/components.py", "cli.py", "store/__init__.py"] + sorted(
+    str(p.relative_to(SRC)) for p in (SRC / "store" / "remote").glob("*.py"))
 
 
 def to_port(text: str) -> str:
@@ -35,10 +37,11 @@ def to_port(text: str) -> str:
 
 
 def test_every_core_module_is_copied():
-    assert len(COPIED) == 14
-    port = {str(p.relative_to(ROOT / "src" / "repro_torch"))
-            for p in (ROOT / "src" / "repro_torch" / "core").glob("*.py")}
-    assert port == {p for p in COPIED if p.startswith("core/")}
+    assert len(COPIED) == 23
+    for pkg in ("core", "store"):
+        port = {str(p.relative_to(ROOT / "src" / "repro_torch"))
+                for p in (ROOT / "src" / "repro_torch" / pkg).rglob("*.py")}
+        assert port == {p for p in COPIED if p.startswith(pkg + "/")}
 
 
 @pytest.mark.parametrize("rel", COPIED)
@@ -94,4 +97,44 @@ def test_pipeline_fingerprints_are_the_same_across_packages():
     from repro_torch.data import PackComponent, TokenizeComponent
     want = JaxPipeline([JaxTokenize(), JaxPack(seq_len=64)], name="tp").fingerprint()
     got = Pipeline([TokenizeComponent(), PackComponent(seq_len=64)], name="tp").fingerprint()
+    assert got == want
+
+
+def _store_history(platform_cls, record_cls, url: str):
+    """Check-ins on a platform opened from ``url``, under a fixed clock: the
+    commit ids, the head and what a checkout reads back."""
+    counter = iter(range(1, 1 << 30))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(time, "time", lambda: 1_700_000_000.0)
+        mp.setattr(uuid, "uuid4", lambda: uuid.UUID(int=next(counter)))
+        plat = platform_cls.open(url)
+        ds = plat.dataset("speech/raw")
+        commits = [ds.check_in([record_cls(f"r{i}", f"payload {i} of {n}".encode(),
+                                           {"lang": "en" if i % 2 else "de"})
+                                for i in range(n)], message=f"v{n}").commit_id
+                   for n in (3, 5)]
+        snap = ds.checkout()
+        payload = snap.read(sorted(snap.record_ids())[2])
+        head = plat.manager.versions.get_branch("speech/raw", "main")
+    return {"commits": commits, "head": head, "payload": payload,
+            "records": sorted(snap.record_ids())}
+
+
+@pytest.mark.parametrize("scheme", ["memory", "file", "memory-simulated"])
+def test_both_packages_open_remote_stores_alike(scheme, tmp_path):
+    """``Platform.open(url)`` through the port's copy of ``repro.store``:
+    the same check-ins give the same commits in both packages."""
+    from repro.core import Record as JaxRecord
+    from repro.platform import Platform as JaxPlatform
+    from repro_torch.core import Record
+    from repro_torch.platform import Platform
+
+    def url(tag):
+        if scheme == "file":
+            return f"file://{tmp_path / tag}"
+        return "memory://" + ("?rtt=0.001&seed=3" if scheme == "memory-simulated" else "")
+
+    want = _store_history(JaxPlatform, JaxRecord, url("jax"))
+    got = _store_history(Platform, Record, url("torch"))
+    assert len(set(want["commits"])) == 2
     assert got == want
