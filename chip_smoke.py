@@ -1624,6 +1624,96 @@ def moe_shardmap_check(torch) -> dict:
     return report
 
 
+def sharded_step_check(torch) -> dict:
+    """Phase 7 (f): one train step of smoke gemma2 and smoke mamba2 with
+    their params made DTensors by ``shard_model`` on the one-rank (1, 1)
+    ("data", "model") mesh of cuda tensors under NCCL, against the plain
+    step on the same card: the loss, the gradient norm and every
+    parameter's change within 3e-4; then the vocab-parallel loss on logits
+    sharded over the one-rank "model" dim against the plain loss (fp32,
+    plain paths: no kernel is launched)."""
+    import numpy as np
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import RuntimeConfig, build_model
+    from repro_torch.models.decoder import xent_loss
+    from repro_torch.train import TrainConfig, make_optimizer, make_train_step
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.sharding import (ActivationSharding, ShardingRules,
+                                            batch_specs, opt_state_specs,
+                                            param_specs, shard_model, shard_tree)
+
+    mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+    rules = ShardingRules(mesh)
+    train = TrainConfig(optimizer=OptimizerConfig(name="adamw", lr=1e-2, warmup_steps=0,
+                                                  total_steps=10))
+    rt = RuntimeConfig(compute_dtype=torch.float32, attn_impl="chunked",
+                       ssd_impl="chunked", rglru_impl="scan")
+    rng = np.random.default_rng(15)
+    for fn, attr in counters().values():
+        setattr(fn, attr, 0)
+    report = {"backend": torch.distributed.get_backend(), "mesh": [1, 1], "tol": FP32_TOL}
+    bad = []
+    for arch in ("gemma2-9b", "mamba2-1.3b"):
+        cfg = get_smoke_config(arch)
+        period = len(cfg.pattern)
+        tokens = torch.from_numpy(rng.integers(3, cfg.vocab_size, size=(4, 65))).cuda()
+        batch = {"tokens": tokens[:, :64], "labels": tokens[:, 1:]}
+        runs = {}
+        for sharded in (False, True):
+            model = build_model(cfg, rt.with_(act_sharding=ActivationSharding(rules))
+                                if sharded else rt, device="cuda", seed=16)
+            opt = make_optimizer(train.optimizer, period=period)
+            params = dict(model.named_parameters())
+            old = {k: p.detach().clone() for k, p in params.items()}
+            state = opt.init(params)
+            feed = batch
+            if sharded:
+                ospecs = opt_state_specs(state, params, param_specs(params, rules, period),
+                                         rules, period)
+                shard_model(model, rules)
+                params = dict(model.named_parameters())
+                state = shard_tree(state, ospecs, mesh)
+                feed = shard_tree(batch, batch_specs(batch, rules), mesh)
+            params, state, metrics = make_train_step(model, train)(params, state, feed)
+            new = {k: (p.full_tensor() if isinstance(p, DTensor) else p).detach()
+                   for k, p in params.items()}
+            runs[sharded] = (float(metrics["loss"]), float(metrics["grad_norm"]),
+                             {k: new[k] - old[k] for k in old})
+            if sharded:
+                report[f"{arch} dtensor params"] = sum(isinstance(p, DTensor)
+                                                       for p in params.values())
+        (loss, gnorm, delta), (s_loss, s_gnorm, s_delta) = runs[False], runs[True]
+        worst = max((s_delta[k] - d).abs().max().item() for k, d in delta.items())
+        report[arch] = {"loss": s_loss, "plain_loss": loss, "grad_norm": s_gnorm,
+                        "plain_grad_norm": gnorm, "param_change_max_abs_diff": worst,
+                        "param_change_max_abs": max(d.abs().max().item()
+                                                    for d in delta.values())}
+        if not (math.isclose(s_loss, loss, rel_tol=FP32_TOL, abs_tol=FP32_TOL)
+                and math.isclose(s_gnorm, gnorm, rel_tol=FP32_TOL, abs_tol=FP32_TOL)
+                and worst <= FP32_TOL):
+            bad.append(arch)
+    logits = torch.from_numpy(rng.standard_normal((4, 64, 512)).astype(np.float32)).cuda()
+    labels = torch.from_numpy(rng.integers(-1, 512, size=(4, 64))).cuda()
+    plain, _ = xent_loss(logits, labels)
+    vocab, _ = xent_loss(
+        DTensor.from_local(logits, mesh, [Replicate(), Shard(2)], run_check=False),
+        DTensor.from_local(labels, mesh, [Replicate(), Replicate()], run_check=False))
+    vocab = vocab.full_tensor().item()
+    report["vocab_parallel_loss"] = {"loss": vocab, "plain_loss": plain.item()}
+    if not math.isclose(vocab, plain.item(), rel_tol=FP32_TOL, abs_tol=FP32_TOL):
+        bad.append("vocab-parallel loss")
+    launched = {name: getattr(fn, attr) for name, (fn, attr) in counters().items()}
+    log("sharded_step " + json.dumps(report))
+    if any(launched.values()):
+        fail(f"phase 7 (f) launched a kernel: {launched} (the plain paths)")
+    if bad:
+        fail(f"phase 7 (f): the sharded step disagrees with the plain step: {bad}: {report}")
+    return report
+
+
 def production_phase(torch, profiling: bool) -> dict:
     """Phase 7 (see the module docstring).  Runs in a one-rank NCCL process
     group (made on a FileStore, as the training driver makes one)."""
@@ -1640,12 +1730,17 @@ def production_phase(torch, profiling: bool) -> dict:
         optimizers_card_vs_cpu(torch)
         remat_checks(torch)
         moe_shardmap_check(torch)
+        sharded_step_check(torch)
     return runs
 
 
 # Phase 8: the dry-run of phase 7's model, in a subprocess.
-DRYRUN_TIMEOUT_S = 400
+DRYRUN_TIMEOUT_S = 600
 PEAK_ESTIMATE_TOL = 0.15
+# (c)'s one expected failure under "auto": moe_ep puts mixtral's 8 experts
+# on the 16-rank "data" axis; the reference's shard_map refuses the same cell.
+GRID_ERRORS = {("mixtral-8x22b", "train_4k"): "moe_apply_shardmap needs the batch split"}
+GRID_MAX_USEFUL_RATIO = 1.05
 
 
 def dryrun_child() -> None:
@@ -1653,7 +1748,7 @@ def dryrun_child() -> None:
     one JSON line."""
     import torch
     sys.path.insert(0, str(SRC))
-    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.configs import ARCHS, SHAPES, get_config
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
     from repro_torch.launch.presets import resolve_layout
@@ -1682,7 +1777,58 @@ def dryrun_child() -> None:
             tc_overrides=tc_over,
             shape=dataclasses.replace(shape, global_batch=PROD_BATCH))
     out["b"]["s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["c"] = []
+    with dryrun.fake_process_group(256):
+        mesh = make_production_mesh(device_type="cuda")
+        for arch in ARCHS:
+            for name, cell_shape in SHAPES.items():
+                rules, rt_over, _ = resolve_layout(get_config(arch), cell_shape, mesh, "auto")
+                rec = dryrun.run_cell_roofline(arch, name, mesh, rules=rules,
+                                               rt_overrides=rt_over)
+                out["c"].append(grid_cell(rec))
+    out["c_s"] = time.perf_counter() - t0
     print(json.dumps(out), flush=True)
+
+
+def grid_cell(rec: dict) -> dict:
+    """Phase 8 (c)'s record of one cell: its status and terms."""
+    cell = {k: rec.get(k) for k in ("arch", "shape", "status", "hlo_flops", "hlo_bytes",
+                                    "wire_bytes", "per_superblock", "useful_flops_ratio")}
+    if rec["status"] == "error":
+        cell["error"] = rec["error"][:300]
+    if rec["status"] == "ok":
+        cell["roofline"] = {k: rec["roofline"][k] for k in (
+            "compute_s", "memory_s", "collective_s", "memory_model_s", "dominant")}
+        cell["trace_s"] = sum(p["compile_s"] for p in rec["points"])
+    return cell
+
+
+def grid_faults(cells: list) -> list:
+    """Phase 8 (c)'s checks: each cell's status is the expected one
+    (``skipped`` where ``cell_runnable`` says so, the error of
+    ``GRID_ERRORS``, else ``ok``), and an ``ok`` cell's per-superblock
+    counts and roofline terms are positive, its useful-FLOPs ratio in
+    (0, 1.05]."""
+    from repro_torch.configs import cell_runnable
+
+    faults = []
+    for c in cells:
+        key = (c["arch"], c["shape"])
+        want = ("skipped" if not cell_runnable(*key).runnable
+                else "error" if key in GRID_ERRORS else "ok")
+        if c["status"] != want:
+            faults.append(f"{key}: {c['status']}, not {want}: {c.get('error')}")
+        elif want == "error" and GRID_ERRORS[key] not in c["error"]:
+            faults.append(f"{key}: another error: {c['error']}")
+        elif want == "ok":
+            terms = list(c["per_superblock"].values()) + [
+                v for k, v in c["roofline"].items() if k != "dominant"]
+            ratio = c["useful_flops_ratio"]
+            if min(terms) <= 0 or not (ratio and 0 < ratio <= GRID_MAX_USEFUL_RATIO):
+                faults.append(f"{key}: a term <= 0 or the useful-FLOPs ratio {ratio} "
+                              f"out of (0, {GRID_MAX_USEFUL_RATIO}]: {c}")
+    return faults
 
 
 def dryrun_phase(card: str, prod: dict) -> dict:
@@ -1699,7 +1845,8 @@ def dryrun_phase(card: str, prod: dict) -> dict:
     if proc.returncode != 0:
         fail(f"phase 8's dry-run exited {proc.returncode}: {proc.stderr[-3000:]}")
     recs = json.loads(proc.stdout.strip().splitlines()[-1])
-    for key, rec in recs.items():
+    for key in ("a", "b"):
+        rec = recs[key]
         if rec["status"] != "ok":
             fail(f"phase 8 ({key}) {rec['arch']} x {rec['shape']} on {rec['mesh']}: "
                  f"{rec['status']}: {rec.get('error')}\n{rec.get('traceback', '')}")
@@ -1732,6 +1879,14 @@ def dryrun_phase(card: str, prod: dict) -> dict:
     if abs(estimate - measured) > PEAK_ESTIMATE_TOL * measured:
         fail(f"phase 8 (b): the peak estimate {estimate} is not within "
              f"{PEAK_ESTIMATE_TOL:.0%} of phase 7's max_memory_allocated {measured}")
+    grid = recs["c"]
+    log("dryrun8c " + json.dumps({
+        "card": card, "mesh": "16x16", "layout": "auto", "cells": grid,
+        "statuses": {s: sum(c["status"] == s for c in grid)
+                     for s in ("ok", "error", "skipped")}, "s": recs["c_s"]}))
+    faults = grid_faults(grid)
+    if faults:
+        fail("phase 8 (c): " + "; ".join(faults))
     return report
 
 

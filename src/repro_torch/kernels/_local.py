@@ -36,7 +36,9 @@ def is_dtensor(x) -> bool:
 
 
 def split_dim(x, dim: int, parts: int):
-    """``x``, about to have its dim ``dim`` split into ``parts`` x rest: a
+    """``x``, about to have its dim ``dim`` split into ``parts`` x rest (or
+    just merged from them: its gradient comes back in the layout returned,
+    and the merge's backward splits that): a
     DTensor keeps that dim sharded over a mesh dim only while the product
     of those mesh dims divides ``parts`` (else the split's shards would be
     uneven), and is replicated over the others; a plain tensor comes back as
@@ -127,7 +129,28 @@ def per_shard(fn: Callable, args: Sequence, in_roles: Sequence[Optional[Roles]],
     outs = out_roles if many else [out_roles]
     parts = list(partial_over) + [()] * (len(outs) - len(partial_over))
     out_pl = [_placements(layout, r, p) for r, p in zip(outs, parts)]
-    return local_map(fn, out_placements=tuple(out_pl) if many else out_pl[0],
+
+    def local(*xs):
+        return fn(*[_ContiguousGrad.apply(x) if isinstance(x, torch.Tensor)
+                    and x.requires_grad else x for x in xs])
+
+    return local_map(local, out_placements=tuple(out_pl) if many else out_pl[0],
                      in_placements=in_pl, in_grad_placements=grad_pl,
                      device_mesh=mesh, redistribute_inputs=True)(*args)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose gradient comes back contiguous.  ``local_map``
+    wraps an input's local gradient as a DTensor as it comes; a transposed
+    one (attention's key gradient with one head a rank, seamless-m4t-medium
+    on a 16-rank model axis) fails the view that the projection's backward
+    then runs on it, which DTensor's sharding propagation allows."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.contiguous()
 

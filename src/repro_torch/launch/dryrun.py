@@ -295,8 +295,17 @@ def run_cell_roofline(arch: str, shape_name: str, mesh, rules=None,
 
     A dispatch trace counts every op it runs, loops included, so here the
     extrapolation equals the full-depth trace of the same settings exactly
-    (every superblock does the same work); it is kept for the reference's
-    records and for its cost, two shallow traces.
+    where every superblock does the same work (mamba2-1.3b, internvl2-2b and
+    seamless-m4t-medium at train_4k on 16 x 16: FLOPs, bytes and wire bytes
+    to the last digit); it is kept for the reference's records and for its
+    cost, two shallow traces.  It does not hold exactly, as in the
+    reference, (1) where the depth is no whole number of superblocks
+    (recurrentgemma-9b's 38 layers are 12 2/3 of its three-layer pattern,
+    and its two tail layers count as 2/3 of one: FLOPs -0.11 %), and (2)
+    where the full model takes another optimizer than the shallow ones
+    (``train_config_for`` gives Adafactor above 1e11 parameters, so
+    mixtral-8x22b and arctic-480b trace AdamW at one and two superblocks:
+    the FLOPs agree, the optimizer's bytes and wire bytes do not).
     """
     cfg = get_config(arch)
     shape = SHAPES[shape_name]

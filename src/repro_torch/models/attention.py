@@ -88,7 +88,9 @@ def attn_apply(
         q, k, v, causal=causal and kv_x is None, window=window,
         softcap=cfg.attn_softcap, q_segments=segments, kv_segments=segments,
         impl=rt.attn_impl, block_q=rt.attn_block_q, block_k=rt.attn_block_k)
-    y = out.reshape(B, S, Hq * dh) @ params["wo"]["w"].to(x.dtype)
+    # The output projection's backward splits its input's gradient back into
+    # the heads: it must arrive sharded only where the heads are.
+    y = split_dim(out.reshape(B, S, Hq * dh), -1, Hq) @ params["wo"]["w"].to(x.dtype)
     if return_kv:
         return y, (k, v)
     return y

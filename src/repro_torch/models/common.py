@@ -114,7 +114,15 @@ def on_use(p):
     parameters and modules come back as they are."""
     if isinstance(p, torch.Tensor):
         layout = getattr(p, "on_use", None)
-        return p if layout is None else p.redistribute(p.device_mesh, layout)
+        if layout is None:
+            return p
+        if torch.is_inference_mode_enabled():
+            # (prefill and decode) a redistribute of a parameter that requires
+            # grad detaches its result in place there, and torch 2.11's
+            # DTensor has no sharding strategy for aten.detach_
+            with torch.inference_mode(False):
+                p = p.detach()
+        return p.redistribute(p.device_mesh, layout)
     first = next(p.parameters(), None)
     if getattr(first, "on_use", None) is None:
         return p

@@ -103,6 +103,14 @@ def _cache_round(n: int, m: int = 128) -> int:
     return ((n + m - 1) // m) * m
 
 
+def _roll_seq(x: torch.Tensor, shift: int) -> torch.Tensor:
+    """``torch.roll(x, shift, dims=1)`` as two slices (torch 2.11's DTensor
+    has no sharding strategy for ``aten.roll``)."""
+    if shift == 0:
+        return x
+    return torch.cat([x[:, -shift:], x[:, :-shift]], dim=1)
+
+
 def _write_ring(cache: Dict[str, torch.Tensor], k: torch.Tensor,
                 v: torch.Tensor) -> Dict[str, torch.Tensor]:
     """Write prompt K/V into the (possibly window-sized ring) cache."""
@@ -112,8 +120,8 @@ def _write_ring(cache: Dict[str, torch.Tensor], k: torch.Tensor,
         # keep the last L positions; ring phase = S % L so that absolute
         # position p lands at slot p % L.
         shift = S % L
-        return {"k": torch.roll(k[:, S - L:], shift, dims=1).to(cache["k"].dtype),
-                "v": torch.roll(v[:, S - L:], shift, dims=1).to(cache["v"].dtype)}
+        return {"k": _roll_seq(k[:, S - L:], shift).to(cache["k"].dtype),
+                "v": _roll_seq(v[:, S - L:], shift).to(cache["v"].dtype)}
     cache["k"][:, :S] = k.to(cache["k"].dtype)
     cache["v"][:, :S] = v.to(cache["v"].dtype)
     return cache
@@ -192,11 +200,11 @@ class DecoderLM(nn.Module):
         """x + mix, then the MLP sublayer (the MoE, plus arctic's dense
         residual MLP, in MoE layers; dense experts in ``decode``); gemma's
         post-norms wrap both sublayers' outputs."""
-        cfg = self.cfg
+        cfg, rt = self.cfg, self.rt
         if cfg.post_norms:
-            mix = norm_apply(p["post_norm1"], mix, cfg.norm)
-        x = x + mix
-        h = norm_apply(p["norm2"], x, cfg.norm)
+            mix = norm_apply(p["post_norm1"], rt.hidden(mix), cfg.norm)
+        x = rt.hidden(x + mix)
+        h = rt.hidden(norm_apply(p["norm2"], x, cfg.norm))
         if cfg.n_experts:
             if decode:
                 y = moe_decode(p["moe"], h, cfg, self.rt)
@@ -209,15 +217,15 @@ class DecoderLM(nn.Module):
         else:
             y = mlp_apply(p["mlp"], h, cfg.act)
         if cfg.post_norms:
-            y = norm_apply(p["post_norm2"], y, cfg.norm)
+            y = norm_apply(p["post_norm2"], rt.hidden(y), cfg.norm)
         return x + y
 
     def _apply_block(self, kind: str, p, x, *, positions, segments):
         cfg, rt = self.cfg, self.rt
         p = on_use(p)
-        h = norm_apply(p["norm1"], x, cfg.norm)
+        h = rt.hidden(norm_apply(p["norm1"], x, cfg.norm))
         if kind == "ssm":
-            return x + ssm_apply(p["ssm"], h, cfg, rt)
+            return rt.hidden(x + ssm_apply(p["ssm"], h, cfg, rt))
         if kind == "rec":
             mix = rec_apply(p["rec"], h, cfg, rt)
         else:
@@ -300,11 +308,11 @@ class DecoderLM(nn.Module):
     def _prefill_block(self, kind: str, p, x, cache, positions, segments=None):
         cfg, rt = self.cfg, self.rt
         p = on_use(p)
-        h = norm_apply(p["norm1"], x, cfg.norm)
+        h = rt.hidden(norm_apply(p["norm1"], x, cfg.norm))
         if kind == "ssm":
             y, state = ssm_apply(p["ssm"], h, cfg, rt, return_state=True)
             state["conv"] = state["conv"].to(cache["conv"].dtype)
-            return x + y, state
+            return rt.hidden(x + y), state
         if kind == "rec":
             mix, state = rec_apply(p["rec"], h, cfg, rt, return_state=True)
             state["conv"] = state["conv"].to(cache["conv"].dtype)
@@ -314,7 +322,7 @@ class DecoderLM(nn.Module):
                 window=_block_window(kind, cfg), segments=segments,
                 return_kv=True)
             state = _write_ring(cache, k, v)
-        return self._mlp_sublayer(p, x, mix), state
+        return rt.hidden(self._mlp_sublayer(p, x, mix)), state
 
     @torch.inference_mode()
     def decode_step(self, cache: List[Dict], token: torch.Tensor, pos: int,
@@ -336,17 +344,17 @@ class DecoderLM(nn.Module):
     def _decode_block(self, kind: str, p, x_t, cache, pos, context_start=None):
         cfg, rt = self.cfg, self.rt
         p = on_use(p)
-        h = norm_apply(p["norm1"], x_t, cfg.norm)
+        h = rt.hidden(norm_apply(p["norm1"], x_t, cfg.norm))
         if kind == "ssm":
             y, state = ssm_decode(p["ssm"], h, cache, cfg, rt)
-            return x_t + y, state
+            return rt.hidden(x_t + y), state
         if kind == "rec":
             mix, state = rec_decode(p["rec"], h, cache, cfg, rt)
         else:
             mix, state = attn_decode(p["attn"], h, cache, pos, cfg, rt,
                                      window=_block_window(kind, cfg),
                                      context_start=context_start)
-        return self._mlp_sublayer(p, x_t, mix, decode=True), state
+        return rt.hidden(self._mlp_sublayer(p, x_t, mix, decode=True)), state
 
 
 def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:

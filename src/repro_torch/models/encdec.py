@@ -90,12 +90,17 @@ class EncDecLM(nn.Module):
 
     # ------------------------------------------------------------------ encoder
 
+    def _norm(self, p, x: torch.Tensor) -> torch.Tensor:
+        """A sublayer's input: the norm of the residual stream, in the
+        residual stream's layout (sharded runs)."""
+        return self.rt.hidden(norm_apply(p, x, self.cfg.norm))
+
     def _enc_block(self, p, x: torch.Tensor) -> torch.Tensor:
         cfg, rt = self.cfg, self.rt
         p = on_use(p)
-        x = x + attn_apply(p["attn"], norm_apply(p["norm1"], x, cfg.norm), cfg, rt,
-                           causal=False)
-        return x + mlp_apply(p["mlp"], norm_apply(p["norm2"], x, cfg.norm), cfg.act)
+        x = rt.hidden(x + attn_apply(p["attn"], self._norm(p["norm1"], x), cfg, rt,
+                                     causal=False))
+        return x + mlp_apply(p["mlp"], self._norm(p["norm2"], x), cfg.act)
 
     def encode(self, frames: torch.Tensor) -> torch.Tensor:
         """frames: (B, S_enc, D) precomputed frontend embeddings."""
@@ -108,11 +113,11 @@ class EncDecLM(nn.Module):
     def _dec_block(self, p, x: torch.Tensor, enc_out: torch.Tensor) -> torch.Tensor:
         cfg, rt = self.cfg, self.rt
         p = on_use(p)
-        x = x + attn_apply(p["self_attn"], norm_apply(p["norm1"], x, cfg.norm), cfg,
-                           rt, causal=True)
-        x = x + attn_apply(p["cross_attn"], norm_apply(p["norm2"], x, cfg.norm), cfg,
-                           rt, kv_x=enc_out)
-        return x + mlp_apply(p["mlp"], norm_apply(p["norm3"], x, cfg.norm), cfg.act)
+        x = rt.hidden(x + attn_apply(p["self_attn"], self._norm(p["norm1"], x), cfg,
+                                     rt, causal=True))
+        x = rt.hidden(x + attn_apply(p["cross_attn"], self._norm(p["norm2"], x), cfg,
+                                     rt, kv_x=enc_out))
+        return x + mlp_apply(p["mlp"], self._norm(p["norm3"], x), cfg.act)
 
     def _dec_trunk(self, x: torch.Tensor, enc_out: torch.Tensor) -> torch.Tensor:
         return self._layers(self._dec_block, self.decoder, x, enc_out)
@@ -185,15 +190,15 @@ class EncDecLM(nn.Module):
                              "RuntimeConfig.max_cache_len")
         cross = self._cross_kv(enc_out)
         for p, sc, cr in zip(map(on_use, self.decoder), self_cache, cross):
-            mix, (k, v) = attn_apply(p["self_attn"], norm_apply(p["norm1"], x, cfg.norm),
+            mix, (k, v) = attn_apply(p["self_attn"], self._norm(p["norm1"], x),
                                      cfg, rt, positions=positions, causal=True,
                                      return_kv=True)
-            x = x + mix
+            x = rt.hidden(x + mix)
             sc["k"][:, :S] = k.to(sc["k"].dtype)
             sc["v"][:, :S] = v.to(sc["v"].dtype)
-            x = x + _cross_apply(p["cross_attn"], norm_apply(p["norm2"], x, cfg.norm),
-                                 cr, cfg)
-            x = x + mlp_apply(p["mlp"], norm_apply(p["norm3"], x, cfg.norm), cfg.act)
+            x = rt.hidden(x + _cross_apply(p["cross_attn"], self._norm(p["norm2"], x),
+                                           cr, cfg))
+            x = rt.hidden(x + mlp_apply(p["mlp"], self._norm(p["norm3"], x), cfg.act))
         return self._logits(x[:, -1:, :]), {"self": self_cache, "cross": cross}, S
 
     @torch.inference_mode()
@@ -204,13 +209,13 @@ class EncDecLM(nn.Module):
         x = self._embed(token)
         new_self = []
         for p, sc, cr in zip(map(on_use, self.decoder), cache["self"], cache["cross"]):
-            mix, sc = attn_decode(p["self_attn"], norm_apply(p["norm1"], x, cfg.norm),
+            mix, sc = attn_decode(p["self_attn"], self._norm(p["norm1"], x),
                                   sc, pos, cfg, rt)
             new_self.append(sc)
-            x = x + mix
-            x = x + _cross_apply(p["cross_attn"], norm_apply(p["norm2"], x, cfg.norm),
-                                 cr, cfg)
-            x = x + mlp_apply(p["mlp"], norm_apply(p["norm3"], x, cfg.norm), cfg.act)
+            x = rt.hidden(x + mix)
+            x = rt.hidden(x + _cross_apply(p["cross_attn"], self._norm(p["norm2"], x),
+                                           cr, cfg))
+            x = rt.hidden(x + mlp_apply(p["mlp"], self._norm(p["norm3"], x), cfg.act))
         return self._logits(x), {"self": new_self, "cross": cache["cross"]}
 
 

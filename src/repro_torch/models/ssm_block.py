@@ -75,12 +75,15 @@ def ssm_apply(params, x: torch.Tensor, cfg: ModelConfig, rt: RuntimeConfig,
     B, S, D = x.shape
     Din, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     proj = x @ params["in_proj"].to(x.dtype)
-    z, xbc, dt_raw = _split_proj(cfg, proj)
+    # z, xbc and dt (and then x, B and C) do not fall on the shards of a
+    # tensor-parallel last dim: gather it before the split, whose gradient
+    # then comes back sharded as the matmul's output was
+    z, xbc, dt_raw = _split_proj(cfg, split_dim(proj, -1, 1))
     conv_in_state = initial["conv"] if initial is not None else None
     xbc, conv_state = _conv_scan(params["conv_w"].to(x.dtype),
                                  params["conv_b"].to(x.dtype),
                                  xbc, conv_in_state)
-    xs, Bm, Cm = torch.split(xbc, [Din, N, N], dim=-1)
+    xs, Bm, Cm = torch.split(split_dim(xbc, -1, 1), [Din, N, N], dim=-1)
     xs = split_dim(xs, -1, H)
     dt, a = _gates(params, dt_raw)                        # (B,S,H)
 
@@ -89,7 +92,9 @@ def ssm_apply(params, x: torch.Tensor, cfg: ModelConfig, rt: RuntimeConfig,
     y, final = ssd(xh, a, Bm, Cm, s0, chunk=cfg.ssm_chunk, impl=rt.ssd_impl)
     y = y + params["D_skip"].float()[None, None, :, None] \
         * xs.reshape(B, S, H, P).float()
-    y = y.reshape(B, S, Din).to(x.dtype)
+    # the gradient of the merged heads must arrive sharded only where the
+    # heads are (as attention's output projection)
+    y = split_dim(y.reshape(B, S, Din), -1, H).to(x.dtype)
     y = rmsnorm(y * F.silu(z), params["norm_scale"])
     out = y @ params["out_proj"].to(x.dtype)
     if return_state:

@@ -463,13 +463,23 @@ def shard_model(model, rules: ShardingRules) -> Dict[str, Spec]:
 
 
 def constrain(x, rules: ShardingRules, spec: Sequence):
-    """A DTensor redistributed to ``spec`` on the rules' mesh; a plain
-    tensor is returned as it is (one process holds the whole of it)."""
+    """A DTensor redistributed to ``spec`` on the rules' mesh, and its
+    gradient redistributed to the same layout in the backward pass, as the
+    reference's ``with_sharding_constraint`` constrains the cotangent too (a
+    gradient left a partial sum would otherwise let the next matmul's
+    backward gather its weight and run the whole product on every rank); a
+    plain tensor is returned as it is (one process holds the whole of it)."""
     from torch.distributed.tensor import DTensor
 
     if not isinstance(x, DTensor):
         return x
-    return x.redistribute(rules.mesh, _placements(rules.mesh, spec))
+    placements = _placements(rules.mesh, spec)
+    y = x.redistribute(rules.mesh, placements)
+    if not y.requires_grad:
+        return y
+    return DTensor.from_local(y.to_local(grad_placements=placements), rules.mesh,
+                              placements, run_check=False, shape=y.shape,
+                              stride=y.stride())
 
 
 class ActivationSharding:

@@ -16,8 +16,11 @@ model-side terms against the reference's (``repro.launch.dryrun``).
 - The per-device ``argument_bytes`` equal the bytes of the local shards the
   specs give; the traced FLOPs on a 1-rank mesh equal ``FlopCounterMode`` on
   the real CPU step, exactly; ``run_cell_roofline``'s 2-point extrapolation
-  equals the full-depth trace at 3 superblocks, exactly; two microbatches
-  trace the matmul FLOPs of one.
+  equals the full-depth trace at 3 superblocks, exactly (gemma2, and mamba2
+  on (2, 2) and (2, 4)); two microbatches trace the matmul FLOPs of one.
+- Under the baseline layout, four ranks on (1, 4) or (2, 2) trace a quarter
+  of one rank's FLOPs exactly, for smoke gemma2, stablelm, recurrentgemma
+  and seamless (their heads, d_ff and vocab divide the "model" axis).
 - Under zero3 (FSDP over both mesh dims, one row a rank) four ranks at 4
   rows trace each rank's FLOPs as one rank at 1 row, to the last digit, and
   the all-gathers' and reduce-scatters' wire bytes equal the FSDP shard
@@ -279,14 +282,19 @@ def test_zero3_gathers_every_fsdp_weight_on_use(smoke):
     assert dots["collectives"]["bytes_by_kind"]["reduce-scatter"] == by_kind["reduce-scatter"]
 
 
-def test_two_point_extrapolation_equals_the_full_depth_trace(smoke):
-    arch = "gemma2-9b"
+@pytest.mark.parametrize("arch,mesh_shape", [
+    ("gemma2-9b", (2, 2)), ("mamba2-1.3b", (2, 2)),
+    # the smallest mesh on which smoke mamba2's shallower graph used to
+    # trace more FLOPs than the deeper one (-851,968 a superblock), as
+    # mamba2-1.3b x train_4k did on 16 x 16
+    ("mamba2-1.3b", (2, 4))])
+def test_two_point_extrapolation_equals_the_full_depth_trace(smoke, arch, mesh_shape):
     cfg = get_smoke_config(arch)
     deep = dataclasses.replace(cfg, n_layers=3 * len(cfg.pattern))
     S = SMALL["train_4k"].seq_len
     with mock.patch.object(dryrun, "get_config", lambda a: deep), \
-            dryrun.fake_process_group(4):
-        mesh = _mesh((2, 2), ("data", "model"))
+            dryrun.fake_process_group(math.prod(mesh_shape)):
+        mesh = _mesh(mesh_shape, ("data", "model"))
         est = dryrun.run_cell_roofline(arch, "train_4k", mesh)
         full = dryrun.run_cell(arch, "train_4k", mesh,
                                rt_overrides={"scan_layers": False, "attn_block_q": S,
@@ -297,6 +305,26 @@ def test_two_point_extrapolation_equals_the_full_depth_trace(smoke):
     assert est["hlo_flops"] == full["hlo_flops"]
     assert est["hlo_bytes"] == full["hlo_bytes"]
     assert est["wire_bytes"] == full["collectives"]["total_wire_bytes"]
+
+
+@pytest.mark.parametrize("mesh_shape", [(1, 4), (2, 2)])
+@pytest.mark.parametrize("arch", ["gemma2-9b", "stablelm-1.6b", "recurrentgemma-9b",
+                                  "seamless-m4t-medium"])
+def test_ranks_split_the_step_flops_exactly(smoke, arch, mesh_shape):
+    """Under the baseline layout each of n ranks traces 1/n of one rank's
+    matmul FLOPs, to the last digit, where every head count, d_ff and the
+    vocab divide the "model" axis: no rank runs a projection, an MLP or the
+    logits whole.  A row-parallel output's gradient used to stay a partial
+    sum, and the next matmul's backward then gathered its weight and ran
+    whole on every "model" rank (smoke gemma2 on (1, 4): 2.44x)."""
+    one = four = None
+    for shape in ((1, 1), mesh_shape):
+        with dryrun.fake_process_group(math.prod(shape)):
+            rec = dryrun.run_cell(arch, "train_4k", _mesh(shape, ("data", "model")),
+                                  tc_overrides={"microbatches": 1})
+        check_cell(rec, one_rank=shape == (1, 1))
+        one, four = (rec, four) if shape == (1, 1) else (one, rec)
+    assert four["hlo_flops"] * math.prod(mesh_shape) == one["hlo_flops"]
 
 
 def test_microbatches_split_the_same_matmul_flops(smoke):

@@ -1,0 +1,117 @@
+"""The port's dry-run on the whole production grid at full size, under the
+``baseline`` layout: ``run_cell_roofline`` of every (arch x shape) cell on
+the fake 16 x 16 ("data", "model") mesh of a 256-rank fake process group,
+the mesh claiming ``cpu`` (the ``auto`` layout's grid is in
+tests/test_torch_dryrun_grid_auto.py).
+
+- A cell is ``skipped`` exactly where ``cell_runnable`` says so (the
+  quadratic-attention archs at long_500k: 7 of 40), else ``ok``.
+- An ``ok`` cell's per-superblock FLOPs, bytes and wire bytes are positive
+  (for a deeper model, a shallower graph must not count more), and so is
+  every roofline term; its useful-FLOPs ratio lies in (0, 1.05] (decode
+  cells read up to 1.044: the model's count adds the attention over the
+  whole context, which the traced step also runs).
+- Where the port's trace is under the reference's, it stays there:
+  ``per_superblock.flops`` and ``hlo_flops`` at most the reference's
+  (``REFERENCE``).  XLA's ``cost_analysis`` counts elementwise work as well
+  as the matmuls that the port counts, so the reference's count is a
+  superset of the port's for the same sharding.  The six cells left where
+  the port counts more are not pinned (ROADMAP Queue 3).
+
+One case per cell.  The records are traced once per cell and layout
+(``grid_record``), on the module's fake group, destroyed at its end.
+"""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import torch.distributed as dist  # noqa: E402
+
+from repro_torch.configs import ARCHS, SHAPES, cell_runnable, get_config  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch.mesh import make_production_mesh  # noqa: E402
+
+CELLS = [(arch, shape) for arch in ARCHS for shape in SHAPES]
+MAX_USEFUL_RATIO = 1.05
+# (per_superblock.flops, hlo_flops) of the reference's records, from
+#   python -m repro.launch.dryrun --all --mesh single --roofline
+# (jax 0.9.0 on the CPU), for the cells where the port counts at most as
+# much.  mamba2-1.3b x train_4k is the one whose port count was negative
+# (-7.5605e12 a superblock) and then 9.4x the reference's at full depth.
+REFERENCE = {
+    ("arctic-480b", "decode_32k"): (27310149632.0, 943350112256.0),
+    ("gemma2-9b", "decode_32k"): (27898435328.0, 559963194624.0),
+    ("gemma2-9b", "prefill_32k"): (7715708469248.0, 162053190844416.0),
+    ("gemma2-9b", "train_4k"): (16240743546880.0, 363378509873152.0),
+    ("gemma3-12b", "decode_32k"): (29741468160.0, 211380489216.0),
+    ("gemma3-12b", "prefill_32k"): (24384884441088.0, 195103570264064.0),
+    ("gemma3-12b", "train_4k"): (57355010048000.0, 480359074496512.0),
+    ("internvl2-2b", "decode_32k"): (12270551520.0, 282731733312.0),
+    ("internvl2-2b", "prefill_32k"): (1636827004928.0, 39293252796416.0),
+    ("internvl2-2b", "train_4k"): (2746149240832.0, 70361437700096.0),
+    ("mamba2-1.3b", "decode_32k"): (37548528.0, 1919593296.0),
+    ("mamba2-1.3b", "prefill_32k"): (262532792320.0, 12603389935616.0),
+    ("mamba2-1.3b", "train_4k"): (963255205888.0, 48780744327168.0),
+    ("mixtral-8x22b", "decode_32k"): (4341201920.0, 241804347392.0),
+    ("mixtral-8x22b", "long_500k"): (140473292.0, 7774843304.0),
+    ("mixtral-8x22b", "prefill_32k"): (12342414802944.0, 691185945411584.0),
+    ("mixtral-8x22b", "train_4k"): (38699328864256.0, 2166130684723200.0),
+    ("qwen2.5-32b", "decode_32k"): (13463537664.0, 850242167808.0),
+    ("recurrentgemma-9b", "decode_32k"): (775092992.0, 11007387221.333332),
+    ("recurrentgemma-9b", "prefill_32k"): (7625806708736.0, 96615988024661.33),
+    ("recurrentgemma-9b", "train_4k"): (24189603938304.0, 330576695394304.0),
+    ("seamless-m4t-medium", "decode_32k"): (2557291456.0, 28917731456.0),
+    ("seamless-m4t-medium", "prefill_32k"): (10488734810112.0, 125868659703808.0),
+    ("seamless-m4t-medium", "train_4k"): (2201161302016.0, 32744482537472.0),
+    ("stablelm-1.6b", "decode_32k"): (1001718592.0, 23605524736.0),
+    ("stablelm-1.6b", "prefill_32k"): (1558217752576.0, 37407714967552.0),
+    ("stablelm-1.6b", "train_4k"): (2371673391104.0, 61814605873152.0),
+}
+
+
+@pytest.fixture(scope="module")
+def production_mesh():
+    """The 16 x 16 mesh on a fake group of 256 ranks, for the module."""
+    with dryrun.fake_process_group(256):
+        yield make_production_mesh(device_type="cpu")
+    assert not dist.is_initialized()
+
+
+def grid_record(mesh, arch: str, shape: str, layout: str) -> dict:
+    """``run_cell_roofline`` of one cell under ``layout``, as the command
+    line runs it."""
+    rules = rt_over = None
+    if layout != "baseline":
+        from repro_torch.launch.presets import resolve_layout
+        rules, rt_over, _ = resolve_layout(get_config(arch), SHAPES[shape], mesh, layout)
+    return dryrun.run_cell_roofline(arch, shape, mesh, rules=rules, rt_overrides=rt_over)
+
+
+def check_grid_cell(rec: dict, want: str) -> None:
+    """The status ``want``; an ``ok`` cell's counts and terms positive and
+    its useful-FLOPs ratio in (0, 1.05]."""
+    assert rec["status"] == want, rec.get("traceback", rec.get("error"))
+    if want != "ok":
+        return
+    per = rec["per_superblock"]
+    assert per["flops"] > 0 and per["bytes"] > 0 and per["wire"] > 0, per
+    r = rec["roofline"]
+    for term in ("compute_s", "memory_s", "collective_s", "memory_model_s", "bound_s"):
+        assert r[term] > 0, (term, r)
+    assert 0 < rec["useful_flops_ratio"] <= MAX_USEFUL_RATIO, rec["useful_flops_ratio"]
+
+
+@pytest.mark.parametrize("arch,shape", CELLS, ids=[f"{a}-{s}" for a, s in CELLS])
+def test_baseline_grid_cell(production_mesh, arch, shape):
+    rec = grid_record(production_mesh, arch, shape, "baseline")
+    check_grid_cell(rec, "ok" if cell_runnable(arch, shape).runnable else "skipped")
+    if (arch, shape) in REFERENCE:
+        ref_per, ref_flops = REFERENCE[arch, shape]
+        assert rec["per_superblock"]["flops"] <= ref_per
+        assert rec["hlo_flops"] <= ref_flops
+
+
+def test_the_grid_has_33_runnable_cells():
+    assert len(CELLS) == 40
+    assert sum(cell_runnable(a, s).runnable for a, s in CELLS) == 33
