@@ -27,7 +27,12 @@ Phases (any failure exits non-zero before the last line is printed):
    with the keys past Sk that the kernel pads its last tile with; mixtral's
    wave A (48 q on 8 KV heads of 128, window 4096, the same pads), and
    seamless's non-causal encoder (4 x 1024 x 16 x 64) and cross-attention
-   (Sq 256, Sk 1024), with SDPA on the same masks.
+   (Sq 256, Sk 1024), with SDPA on the same masks; and a query-rows split
+   at qwen2.5-32b prefill_32k's per-rank shape on the dry-run's 16 "model"
+   ranks (q 2 x 2048 of 32768 keys, 40 q on 8 KV heads of 128, causal):
+   the first and busiest rank (q_offset 0 and 30720) as two of those cases,
+   with SDPA, and all 16 chunks through the kernel at their q_offsets, their
+   concatenation held to ``bf16_flash_limit`` against the whole attention.
    Flash attention has two kernels, chosen by dtype and head_dim:
    ``flash_fwd_wgmma`` (bf16 tensor cores, the serving path) and
    ``flash_fwd`` (fp32 and small head_dims); so has SSD, by dtype and
@@ -127,7 +132,11 @@ Phases (any failure exits non-zero before the last line is printed):
    ``max_memory_allocated`` (which it must match within 15 %), its per-device
    FLOPs over the measured ``step_ms`` as TFLOP/s, and its bound against
    ``step_ms``, each line with the card's name and power limit; fails if a
-   cell's status is not "ok".
+   cell's status is not "ok".  (c) the whole 40-cell grid under ``auto``:
+   the statuses of tests/test_torch_dryrun_grid_auto.py, every term
+   positive, every ``ok`` cell's ``hlo_flops`` at most the reference's
+   (``GRID_REFERENCE_FLOPS``) and the one-row long_500k cells' equal to the
+   CPU trace's (``GRID_SANDBOX_LONG_FLOPS``).
 
 With ``--profile``, phases 3, 4, 4b and 4c also trace one prefill of their
 first measured wave and 8 decode steps under ``torch.profiler`` and print
@@ -250,16 +259,19 @@ def ssd_bound(B, S, H, P, N, dtype: str, with_s0: bool, chunk: int):
 def flash_bound(torch, q, k, mask, dtype: str):
     """Least time for flash_fwd's work: (ms, "bytes" | "operations").
 
-    Bytes: q, k, v read and the output written in their dtype, segments read
-    (int32, when given).  Operations: for every valid (query, key) pair of
-    these inputs (``mask``: (B, Sq, Sk) bool, counted on the card), the
-    QK^T and PV dot products, 2 D multiply-adds, 4 D operations, per q head;
-    at the peak rate of the input dtype.
+    Bytes: q read and the output written in their dtype, k and v read for
+    the keys that some query of their row may attend (``mask``: (B, Sq, Sk)
+    bool, counted on the card; a causal chunk of rows at a q_offset needs
+    none past its last row), segments read (int32, when given).  Operations:
+    for every valid (query, key) pair of these inputs, the QK^T and PV dot
+    products, 2 D multiply-adds, 4 D operations, per q head; at the peak
+    rate of the input dtype.
     """
     B, Sq, Hq, D = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
+    Hkv = k.shape[2]
     elt = q.element_size()
-    nbytes = (2 * B * Sq * Hq * D + 2 * B * Sk * Hkv * D) * elt + 4 * B * (Sq + Sk)
+    keys = int(mask.any(dim=1).sum().item())          # (row, key) pairs reached
+    nbytes = (2 * B * Sq * Hq * D + 2 * keys * Hkv * D) * elt + 4 * (B * Sq + keys)
     pairs = int(mask.sum().item())
     flops = 4 * D * pairs * Hq
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
@@ -360,7 +372,8 @@ def check_flash(torch, case, gen):
         mask = mask & (qs[:, :, None] == ks[:, None, :])
     bound_ms, bound_by = flash_bound(torch, q, k, mask, dtype)
     library_ms = library_call = None
-    if label.startswith(("serve wave A", "gemma2 wave A", "mixtral", "seamless")):
+    if label.startswith(("serve wave A", "gemma2 wave A", "mixtral", "seamless",
+                         "qwen rows")):
         # One PyTorch call for the same function: SDPA with the boolean
         # causal, window and segment mask.  SDPA has no softcap: where the
         # case has one, SDPA computes the same masks without it.
@@ -714,6 +727,10 @@ def smoke_reference(torch, cfg, plain: dict, prompt_lens, steps: int, seed: int,
     del small
 
 
+# qwen2.5-32b prefill_32k's attention (B, S, Hq, Hkv, D) and the dry-run's
+# "model" ranks that split its query rows
+QWEN_ROWS, QWEN_RANKS = (2, 32768, 40, 8, 128), 16
+
 FLASH_CASES = [
     # label, B, Sq, Sk, Hq, Hkv, D, dtype, causal, window, softcap,
     # q_offset, segments, plain (block_q, block_k)
@@ -749,7 +766,45 @@ FLASH_CASES = [
      0, None, (512, 1024)),
     ("seamless cross", 4, 256, 1024, 16, 16, 64, "bfloat16", False, None, None,
      0, None, (256, 1024)),
+    # qwen2.5-32b's prefill_32k on the dry-run's 16 "model" ranks: its 40 q
+    # heads do not divide 16, so the attention splits each row's 32768
+    # queries into 16 chunks of 2048 (B 2: 32 rows over 16 "data" ranks),
+    # rank r attending from q_offset 2048 r; the first and the busiest rank.
+    *((f"qwen rows rank {r} of {QWEN_RANKS}", QWEN_ROWS[0],
+       QWEN_ROWS[1] // QWEN_RANKS, *QWEN_ROWS[1:], "bfloat16", True, None, None,
+       r * QWEN_ROWS[1] // QWEN_RANKS, None, (512, 1024)) for r in (0, QWEN_RANKS - 1)),
 ]
+
+
+def check_flash_rows(torch, gen) -> dict:
+    """The query-rows split of the "qwen rows" cases (``FLASH_CASES``): the
+    16 ranks' chunks of one input set through ``flash_fwd_wgmma`` at their
+    q_offsets, their concatenation held to ``bf16_flash_limit`` against the
+    plain version of the whole attention in float64, and compared with the
+    kernel's one call on the whole."""
+    from repro_torch.kernels.flash_attention.kernel import flash_cuda
+    from repro_torch.kernels.flash_attention.ops import _flash_chunked
+    from repro_torch.kernels.flash_attention.ref import bf16_flash_limit
+    (B, S, Hq, Hkv, D), n = QWEN_ROWS, QWEN_RANKS
+    rows = S // n
+    q, k, v = (torch.randn(shape, device="cuda", generator=gen).to(torch.bfloat16)
+               for shape in ((B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D)))
+    wide = dict(causal=True, window=None, softcap=None, q_segments=None,
+                kv_segments=None, q_offset=0, scale=None, block_q=1024, block_k=1024)
+    want = _flash_chunked(q.double(), k.double(), v.double(), **wide)
+    limit = bf16_flash_limit(want, _flash_chunked(q.double(), k.double(),
+                                                  v.double().abs(), **wide))
+    cat = torch.cat([flash_cuda(q[:, r * rows:(r + 1) * rows], k, v, causal=True,
+                                q_offset=r * rows) for r in range(n)], dim=1)
+    ok, err, ratio = within(torch, cat, want, limit)
+    whole = flash_cuda(q, k, v, causal=True)
+    res = {"case": f"qwen rows: {n} chunks concatenated vs the whole attention",
+           "kernel": "flash_fwd_wgmma", "shape": [B, S, S, Hq, Hkv, D],
+           "dtype": "bfloat16", "err": err, "err_over_limit": ratio,
+           "tol": "bf16_flash_limit", "ok": ok,
+           "max_abs_diff_vs_kernel_whole": (cat.float() - whole.float()).abs().max().item()}
+    log("flash_fwd_wgmma check " + json.dumps(res))
+    return res
 
 
 def serve_gemma2(torch, prompt_gen, profiling: bool) -> dict:
@@ -1741,6 +1796,53 @@ PEAK_ESTIMATE_TOL = 0.15
 # on the 16-rank "data" axis; the reference's shard_map refuses the same cell.
 GRID_ERRORS = {("mixtral-8x22b", "train_4k"): "moe_apply_shardmap needs the batch split"}
 GRID_MAX_USEFUL_RATIO = 1.05
+# (c) holds every ok cell's hlo_flops at or under the reference's record of
+# the same cell, from
+#   python -m repro.launch.dryrun --all --mesh single --roofline --layout auto
+# (jax 0.9.0 on the CPU; copied here: this script imports nothing of it).
+GRID_REFERENCE_FLOPS = {
+    ("arctic-480b", "decode_32k"): 943350112256.0,
+    ("arctic-480b", "prefill_32k"): 364208360259584.0,
+    ("arctic-480b", "train_4k"): 652283027128320.0,
+    ("gemma2-9b", "decode_32k"): 559963194624.0,
+    ("gemma2-9b", "prefill_32k"): 161610098278400.0,
+    ("gemma2-9b", "train_4k"): 283103570427904.0,
+    ("gemma3-12b", "decode_32k"): 211380489216.0,
+    ("gemma3-12b", "prefill_32k"): 194612278853632.0,
+    ("gemma3-12b", "train_4k"): 355335780958208.0,
+    ("internvl2-2b", "decode_32k"): 282731733312.0,
+    ("internvl2-2b", "prefill_32k"): 39157362327552.0,
+    ("internvl2-2b", "train_4k"): 70361437700096.0,
+    ("mamba2-1.3b", "decode_32k"): 1919593296.0,
+    ("mamba2-1.3b", "long_500k"): 73411150.0,
+    ("mamba2-1.3b", "prefill_32k"): 12603389935616.0,
+    ("mamba2-1.3b", "train_4k"): 48780744327168.0,
+    ("mixtral-8x22b", "decode_32k"): 241804347392.0,
+    ("mixtral-8x22b", "long_500k"): 7774843304.0,
+    ("mixtral-8x22b", "prefill_32k"): 690704665804800.0,
+    ("qwen2.5-32b", "decode_32k"): 850242167808.0,
+    ("qwen2.5-32b", "prefill_32k"): 434269394567168.0,
+    ("qwen2.5-32b", "train_4k"): 891474308759552.0,
+    ("recurrentgemma-9b", "decode_32k"): 11007387221.333332,
+    ("recurrentgemma-9b", "long_500k"): 185163174.66666666,
+    ("recurrentgemma-9b", "prefill_32k"): 96506341927594.66,
+    ("recurrentgemma-9b", "train_4k"): 252808242659328.0,
+    ("seamless-m4t-medium", "decode_32k"): 28917731456.0,
+    ("seamless-m4t-medium", "prefill_32k"): 24113965957120.0,
+    ("seamless-m4t-medium", "train_4k"): 32744482537472.0,
+    ("stablelm-1.6b", "decode_32k"): 23605524736.0,
+    ("stablelm-1.6b", "prefill_32k"): 37247571722240.0,
+    ("stablelm-1.6b", "train_4k"): 61814605873152.0,
+}
+# ... and the one-row long_500k cells' hlo_flops equal to the port's trace
+# of them with torch 2.13 on the CPU (python -m repro_torch.launch.dryrun
+# --device cpu --all --mesh single --roofline --layout auto): no layout of
+# that step is left to DTensor's choice, which differed between versions.
+GRID_SANDBOX_LONG_FLOPS = {
+    ("mamba2-1.3b", "long_500k"): 13635584.0,
+    ("mixtral-8x22b", "long_500k"): 1460404224.0,
+    ("recurrentgemma-9b", "long_500k"): 99713024.0,
+}
 
 
 def dryrun_child() -> None:
@@ -1809,7 +1911,8 @@ def grid_faults(cells: list) -> list:
     (``skipped`` where ``cell_runnable`` says so, the error of
     ``GRID_ERRORS``, else ``ok``), and an ``ok`` cell's per-superblock
     counts and roofline terms are positive, its useful-FLOPs ratio in
-    (0, 1.05]."""
+    (0, 1.05], its ``hlo_flops`` at most ``GRID_REFERENCE_FLOPS``' and, at
+    long_500k, equal to ``GRID_SANDBOX_LONG_FLOPS``'."""
     from repro_torch.configs import cell_runnable
 
     faults = []
@@ -1828,6 +1931,12 @@ def grid_faults(cells: list) -> list:
             if min(terms) <= 0 or not (ratio and 0 < ratio <= GRID_MAX_USEFUL_RATIO):
                 faults.append(f"{key}: a term <= 0 or the useful-FLOPs ratio {ratio} "
                               f"out of (0, {GRID_MAX_USEFUL_RATIO}]: {c}")
+            if c["hlo_flops"] > GRID_REFERENCE_FLOPS[key]:
+                faults.append(f"{key}: hlo_flops {c['hlo_flops']} over the reference's "
+                              f"{GRID_REFERENCE_FLOPS[key]}")
+            if key in GRID_SANDBOX_LONG_FLOPS and c["hlo_flops"] != GRID_SANDBOX_LONG_FLOPS[key]:
+                faults.append(f"{key}: hlo_flops {c['hlo_flops']}, not the CPU trace's "
+                              f"{GRID_SANDBOX_LONG_FLOPS[key]}")
     return faults
 
 
@@ -1957,6 +2066,9 @@ def main() -> None:
         ("S = chunk + 1, h0, slow decay", 2, T + 1, 1000, "float32", True, "slow"),
     ]
     flash = [check_flash(torch, c, gen) for c in FLASH_CASES]
+    flash.append(check_flash_rows(torch, gen))
+    gc.collect()
+    torch.cuda.empty_cache()
     ssd = [check_ssd(torch, c, gen) for c in ssd_cases]
     checks = {"ssd_fwd_wgmma": [c for c in ssd if c["kernel"] == "ssd_fwd_wgmma"],
               "ssd_fwd": [c for c in ssd if c["kernel"] == "ssd_fwd"],

@@ -5,15 +5,20 @@ the encoder-decoder's cross-attention) are written for whole tensors.  When
 their inputs are DTensors, :func:`per_shard` runs them per shard under
 ``torch.distributed.tensor.experimental.local_map``, the counterpart of how
 GSPMD partitions the reference's plain attention: every mesh dim that
-shards the anchor input's batch dim keeps the batch there, every other mesh
-dim takes the op's heads (or channels) where they divide and is replicated
-where they do not.  The inputs are redistributed to that layout first.  So
+shards the anchor input's batch dim keeps the batch there; a mesh dim that
+shards the anchor's query rows (the reference's ``attn_shard_mode="seq"``)
+keeps them there; every other mesh dim takes the op's heads (or channels)
+where they divide, else the query rows where the op has them (more than one
+row, and they divide), and is replicated where it can take neither.  The
+inputs are redistributed to that layout first.  So
 the plain code never sees a DTensor, and no op inside it has to propagate a
 sharding (the heads' reshape of a sharded projection would give DTensor's
 batched matmuls a strided shard it cannot propagate).
 
 Each input and output is described by its roles, one a dim: ``"batch"``,
-``"heads"`` or ``None`` (whole on every rank).
+``"heads"``, ``"rows"`` (a split of the query sequence: the keys and values
+stay whole on those mesh dims, and each rank's rows start at
+:func:`row_offset`) or ``None`` (whole on every rank).
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
-__all__ = ["is_dtensor", "per_shard", "shard_layout", "split_dim"]
+__all__ = ["is_dtensor", "per_shard", "row_offset", "shard_layout", "split_dim"]
 
 Roles = Tuple[Optional[str], ...]
 
@@ -59,22 +64,57 @@ def split_dim(x, dim: int, parts: int):
     return x.redistribute(x.device_mesh, out)
 
 
-def shard_layout(anchor, anchor_roles: Roles, heads: Sequence[int]):
-    """The role each mesh dim carries: ``"batch"`` where ``anchor`` shards
-    its batch dim, else ``"heads"`` where every size in ``heads`` divides by
-    the product of the mesh dims that shard heads, else None."""
+def shard_layout(anchor, anchor_roles: Roles, heads: Sequence[int], *,
+                 check_rows: bool = True):
+    """The role each mesh dim carries, in mesh order: ``"batch"`` where
+    ``anchor`` shards its batch dim; ``"rows"`` where it shards its rows dim
+    (q sharded on its sequence, as the reference's ``attn_shard_mode="seq"``
+    constrains it); else ``"heads"`` where every size in ``heads`` divides
+    by the product of the mesh dims that shard heads; else ``"rows"`` where
+    the anchor has a rows dim of more than one row (heads that do not divide
+    the mesh dim: GSPMD pads them, and a split of the query rows does the
+    same work at exactly 1/n); else None.  Raises where the rows are to be
+    split but do not divide by the product of the mesh dims that split
+    them, unless ``check_rows`` is false (a probe that reads only where the
+    heads go)."""
     mesh = anchor.device_mesh
     batch_dim = anchor_roles.index("batch") if "batch" in anchor_roles else None
-    out, n_heads = [], 1
+    rows_dim = anchor_roles.index("rows") if "rows" in anchor_roles else None
+    rows = anchor.shape[rows_dim] if rows_dim is not None else 0
+    out, n_heads, n_rows = [], 1, 1
     for i, pl in enumerate(anchor.placements):
+        size = mesh.size(i)
         if batch_dim is not None and pl.is_shard(batch_dim):
             out.append("batch")
-        elif heads and all(h % (n_heads * mesh.size(i)) == 0 for h in heads):
-            n_heads *= mesh.size(i)
-            out.append("heads")
-        else:
-            out.append(None)
+            continue
+        if not (rows_dim is not None and pl.is_shard(rows_dim)):
+            if heads and all(h % (n_heads * size) == 0 for h in heads):
+                n_heads *= size
+                out.append("heads")
+                continue
+            if rows <= 1:
+                out.append(None)
+                continue
+        if check_rows and rows % (n_rows * size):
+            raise ValueError(
+                f"{rows} query rows do not split over {n_rows * size} ranks "
+                f"(mesh dim {i}), and the heads {tuple(heads)} do not divide it")
+        n_rows *= size
+        out.append("rows")
     return mesh, out
+
+
+def row_offset(mesh, layout, local_rows: int) -> int:
+    """The index of this rank's first query row: its block of rows over the
+    mesh dims of ``layout`` that carry ``"rows"``, in mesh order (as DTensor
+    splits a dim over several mesh dims), times ``local_rows``.  The
+    coordinate comes from ``DeviceMesh.get_local_rank``: 0 on the dry-run's
+    rank 0."""
+    index = 0
+    for i, role in enumerate(layout):
+        if role == "rows":
+            index = index * mesh.size(i) + mesh.get_local_rank(i)
+    return index * local_rows
 
 
 def _placements(layout, roles: Optional[Roles], partial_over: Sequence[str] = ()):
@@ -106,8 +146,9 @@ def per_shard(fn: Callable, args: Sequence, in_roles: Sequence[Optional[Roles]],
     ``partial_over`` names a role is left as a partial sum over the mesh dims
     of that role (its shards are summands, as a row-parallel matmul's).
     Plain tensors among ``args`` are taken as replicated.  The gradient of
-    an input that is whole on a mesh dim carrying the batch or the heads is
-    a partial sum there (each rank's share).
+    an input that is whole on a mesh dim carrying the batch, the heads or
+    the rows is a partial sum there (each rank's share: the keys and values
+    of a rows split take a gradient from every rank's rows).
     """
     from torch.distributed.tensor import DTensor
     from torch.distributed.tensor.experimental import local_map
@@ -121,9 +162,10 @@ def per_shard(fn: Callable, args: Sequence, in_roles: Sequence[Optional[Roles]],
             if isinstance(a, torch.Tensor) and not isinstance(a, DTensor) else a
             for a in args]
     in_pl = tuple(_placements(layout, r) for r in in_roles)
-    # An input whole on a mesh dim that splits the work (the batch or the
-    # heads) gets a share of its gradient from each rank there: a partial sum.
-    grad_pl = tuple(_placements(layout, r, partial_over=("batch", "heads"))
+    # An input whole on a mesh dim that splits the work (the batch, the
+    # heads or the rows) gets a share of its gradient from each rank there:
+    # a partial sum.
+    grad_pl = tuple(_placements(layout, r, partial_over=("batch", "heads", "rows"))
                     for r in in_roles)
     many = isinstance(out_roles, list)
     outs = out_roles if many else [out_roles]

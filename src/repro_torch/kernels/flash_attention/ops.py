@@ -6,8 +6,13 @@ falls back: a CUDA tensor under ``"cuda"`` or ``"auto"`` launches the kernel
 or raises.  ``"ref"`` is :func:`attention_reference`, which materialises the
 scores.  The kernel's launch count is ``kernel.flash_cuda.launches``.
 DTensor inputs run per shard (:func:`repro_torch.kernels._local.per_shard`):
-the batch where q shards it, the heads over the other mesh dims where both
-head counts divide (K/V are repeated to the q heads where only Hq divides).
+the batch where q shards it; the query rows where q shards its sequence
+(the reference's ``attn_shard_mode="seq"``); the heads over the other mesh
+dims where both head counts divide (K/V are repeated to the q heads where
+only Hq divides); else the query rows (heads that do not divide the mesh
+dim).  A rows split keeps K/V and ``kv_segments`` whole on its mesh dims,
+and each rank attends from its own rows' positions: ``q_offset`` plus its
+coordinate on those mesh dims times its rows.
 
 Any Sq and Sk are taken, as the serving engine's padded waves need: the
 kernels tile by their own sizes and mask ragged tiles, and the plain version
@@ -21,7 +26,7 @@ from typing import Optional
 
 import torch
 
-from .._local import is_dtensor, per_shard, shard_layout
+from .._local import is_dtensor, per_shard, row_offset, shard_layout
 from .ref import NEG_INF, attention_reference
 
 __all__ = ["flash_attention"]
@@ -63,34 +68,43 @@ def flash_attention(
     return _flash_chunked(q, k, v, block_q=block_q, block_k=block_k, **common)
 
 
-QKV_ROLES = ("batch", None, "heads", None)
+Q_ROLES = ("batch", "rows", "heads", None)       # q and the output
+KV_ROLES = ("batch", None, "heads", None)        # k and v: whole on a rows split
 
 
 def gqa_per_shard(q, k, v):
     """(k, v) as per-shard attention takes them: repeated to the q heads
     when the q heads can be sharded over a mesh dim that the KV heads do not
-    divide (each rank then holds the KV heads of its own q heads)."""
+    divide (each rank then holds the KV heads of its own q heads).  A mesh
+    dim that splits the rows keeps K/V at their own heads.  Only the
+    layout chosen after the repeat raises for rows that do not divide."""
     Hq, Hkv = q.shape[2], k.shape[2]
-    _, with_kv = shard_layout(q, QKV_ROLES, (Hq, Hkv))
-    _, q_only = shard_layout(q, QKV_ROLES, (Hq,))
+    _, with_kv = shard_layout(q, Q_ROLES, (Hq, Hkv), check_rows=False)
+    _, q_only = shard_layout(q, Q_ROLES, (Hq,), check_rows=False)
     if Hq != Hkv and q_only.count("heads") > with_kv.count("heads"):
         k = k.repeat_interleave(Hq // Hkv, dim=2)
         v = v.repeat_interleave(Hq // Hkv, dim=2)
     return k, v
 
 
-def _flash_per_shard(q, k, v, q_segments, kv_segments, **kw):
-    def local(q, k, v, q_segments, kv_segments):
-        return flash_attention(q, k, v, q_segments=q_segments,
-                               kv_segments=kv_segments, **kw)
-
+def _flash_per_shard(q, k, v, q_segments, kv_segments, *, q_offset, **kw):
     k, v = gqa_per_shard(q, k, v)
-    seg = ("batch", None)
+    heads = (q.shape[2], k.shape[2])
+    # (per_shard anchors on q when it is a DTensor, so this is its layout)
+    mesh, layout = shard_layout(q, Q_ROLES, heads) if is_dtensor(q) else (None, ())
+
+    def local(q, k, v, q_segments, kv_segments):
+        offset = q_offset
+        if "rows" in layout:
+            offset += row_offset(mesh, layout, q.shape[1])
+        return flash_attention(q, k, v, q_segments=q_segments,
+                               kv_segments=kv_segments, q_offset=offset, **kw)
+
     return per_shard(local, (q, k, v, q_segments, kv_segments),
-                     (QKV_ROLES, QKV_ROLES, QKV_ROLES,
-                      seg if q_segments is not None else None,
-                      seg if kv_segments is not None else None),
-                     QKV_ROLES, heads=(q.shape[2], k.shape[2]))
+                     (Q_ROLES, KV_ROLES, KV_ROLES,
+                      ("batch", "rows") if q_segments is not None else None,
+                      ("batch", None) if kv_segments is not None else None),
+                     Q_ROLES, heads=heads)
 
 
 def _flash_chunked(
@@ -103,7 +117,14 @@ def _flash_chunked(
     transient scores are (B, Hq, bq, bk), never (Sq, Sk).  The last q and
     kv blocks may be short (Sq or Sk not a multiple of the block): they are
     sliced to the rows and keys that exist.  Computes in fp32, or fp64 when q
-    is fp64."""
+    is fp64.
+
+    Every (q block, kv block) tile is computed and then masked, the causal
+    and window tiles above the diagonal too: a rank of a rows split (see
+    :func:`flash_attention`) then does the same work whatever its rows, and
+    the dry-run, which traces rank 0 (the rank whose causal rows see the
+    fewest keys), counts what every rank runs.  (The CUDA kernels skip the
+    masked tiles.)"""
     B, Sq, Hq, D = q.shape
     _, Sk, Hkv, _ = k.shape
     group = Hq // Hkv

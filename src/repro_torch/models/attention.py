@@ -14,7 +14,10 @@ in place (the reference returns updated copies); the cache dict it returns
 holds the same tensors.  With DTensor params and activations (the sharded
 step) the attention itself runs per shard: ``flash_attention`` and
 :func:`_decode_attend`'s scores and softmax go through
-:func:`repro_torch.kernels._local.per_shard`.
+:func:`repro_torch.kernels._local.per_shard`.  Where the attention splits the
+query rows (q sharded on its sequence, or heads that do not divide a mesh
+dim), its output stays sharded on the sequence into the output projection,
+which takes ``wo`` whole on those mesh dims (:func:`out_proj`).
 """
 
 from __future__ import annotations
@@ -28,9 +31,9 @@ from torch import nn
 from ..configs.base import ModelConfig
 from ..kernels._local import is_dtensor, per_shard, split_dim
 from ..kernels.flash_attention import flash_attention
-from ..kernels.flash_attention.ops import QKV_ROLES, gqa_per_shard
-from .common import (Initializer, RuntimeConfig, apply_rope, dense_apply,
-                     dense_init)
+from ..kernels.flash_attention.ops import KV_ROLES, Q_ROLES, gqa_per_shard
+from .common import (Initializer, Kept, RuntimeConfig, apply_rope, dense_apply,
+                     dense_init, linear, sharded_matmul, weight)
 
 __all__ = ["attn_init", "attn_apply", "attn_decode", "init_kv_cache"]
 
@@ -48,9 +51,15 @@ def attn_init(ini: Initializer, cfg: ModelConfig, dtype) -> nn.ModuleDict:
     })
 
 
-def _project(p, x: torch.Tensor, n_heads: int, dh: int) -> torch.Tensor:
+def _project(p, x: torch.Tensor, n_heads: int, dh: int,
+             rt: Optional[RuntimeConfig] = None) -> torch.Tensor:
+    """x's projection as (B, S, heads, dh); with ``rt``, in the layout of
+    its heads constraint's sequence mode from the start."""
     B, S, _ = x.shape
-    return split_dim(dense_apply(p, x), -1, n_heads).reshape(B, S, n_heads, dh)
+    y = dense_apply(p, x)
+    if rt is not None:
+        y = rt.seq_constraint(y)
+    return split_dim(y, -1, n_heads).reshape(B, S, n_heads, dh)
 
 
 def attn_apply(
@@ -74,9 +83,9 @@ def attn_apply(
     B, S, _ = x.shape
     Hq, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     src = x if kv_x is None else kv_x
-    q = rt.heads_constraint(_project(params["wq"], x, Hq, dh))
-    k = rt.heads_constraint(_project(params["wk"], src, Hkv, dh))
-    v = rt.heads_constraint(_project(params["wv"], src, Hkv, dh))
+    q = rt.heads_constraint(_project(params["wq"], x, Hq, dh, rt))
+    k = rt.heads_constraint(_project(params["wk"], src, Hkv, dh, rt))
+    v = rt.heads_constraint(_project(params["wv"], src, Hkv, dh, rt))
     if use_rope and kv_x is None:
         if positions is None:
             positions = torch.arange(S, device=x.device)
@@ -90,10 +99,31 @@ def attn_apply(
         impl=rt.attn_impl, block_q=rt.attn_block_q, block_k=rt.attn_block_k)
     # The output projection's backward splits its input's gradient back into
     # the heads: it must arrive sharded only where the heads are.
-    y = split_dim(out.reshape(B, S, Hq * dh), -1, Hq) @ params["wo"]["w"].to(x.dtype)
+    y = out_proj(split_dim(out.reshape(B, S, Hq * dh), -1, Hq), params["wo"]["w"])
     if return_kv:
         return y, (k, v)
     return y
+
+
+def out_proj(out: torch.Tensor, w) -> torch.Tensor:
+    """``out`` (B, S, Hq * dh) times the output projection ``w``, in out's
+    dtype.  Where ``out`` is sharded on its sequence (a rows split), each
+    rank projects its own rows (:func:`sharded_matmul`) by the whole of
+    ``w`` on the mesh dims that shard out's batch or rows (a gather of the
+    weight, which costs less than moving the rows to the heads and summing
+    the partial products), by its rows of ``w`` where out's heads are
+    sharded (a partial sum), and by ``w`` as it comes elsewhere."""
+    if not (is_dtensor(out) and any(pl.is_shard(1) for pl in out.placements)):
+        return linear(out, w)
+    from torch.distributed.tensor import Replicate, Shard
+
+    kept = w.dims if isinstance(w, Kept) else ()
+    w = weight(w).to(out.dtype)
+    heads = out.dim() - 1
+    w = w.redistribute(w.device_mesh, [
+        Shard(0) if op.is_shard(heads) else (Replicate() if op.is_shard() else wp)
+        for op, wp in zip(out.placements, w.placements)])
+    return sharded_matmul(out, w, kept)
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
@@ -175,13 +205,13 @@ def _decode_attend(params, q, k, v, valid, cfg: ModelConfig, dtype):
     if is_dtensor(q) or is_dtensor(k):
         k, v = gqa_per_shard(q, k, v)
         out = per_shard(partial(_decode_core, softcap=cfg.attn_softcap),
-                        (q, k, v, valid), (QKV_ROLES, QKV_ROLES, QKV_ROLES,
+                        (q, k, v, valid), (Q_ROLES, KV_ROLES, KV_ROLES,
                                            ("batch", None)),
-                        QKV_ROLES, heads=(Hq, k.shape[2]))
+                        Q_ROLES, heads=(Hq, k.shape[2]))
     else:
         out = _decode_core(q, k, v, valid, softcap=cfg.attn_softcap)
     out = out.reshape(B, 1, Hq * dh).to(dtype)
-    return out @ params["wo"]["w"].to(dtype)
+    return linear(out, params["wo"]["w"])
 
 
 def _decode_core(q, k, v, valid, *, softcap):

@@ -9,22 +9,28 @@ rules read full-size shapes from it without memory.
 
 A model whose parameters :func:`repro_torch.train.sharding.shard_model` made
 DTensors runs sharded: each layer takes its parameters through
-:func:`on_use`, which gathers their FSDP shards.
+:func:`on_use`, which gathers their FSDP shards where the layer's input
+splits its batch over the FSDP mesh dims, and keeps them where it does not
+(one row, say: a :class:`Kept` weight); its matmuls go through
+:func:`linear`.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Optional, Union
+from typing import Any, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..kernels._local import is_dtensor
+
 __all__ = ["RuntimeConfig", "Initializer", "resolve_device", "rmsnorm",
            "layernorm", "norm_init", "norm_apply", "dense_init", "dense_apply",
-           "mlp_init", "mlp_apply", "apply_rope", "softcap", "on_use"]
+           "mlp_init", "mlp_apply", "apply_rope", "softcap", "on_use", "Kept", "weight",
+           "linear", "sharded_matmul"]
 
 
 @dataclass(frozen=True)
@@ -67,6 +73,11 @@ class RuntimeConfig:
             return self.act_sharding.heads(x)
         return x
 
+    def seq_constraint(self, x):
+        if self.act_sharding and self.constrain_attn_heads:
+            return self.act_sharding.attn_seq(x)
+        return x
+
     def moe_constraint(self, x):
         return (self.act_sharding.moe_expert_major(x)
                 if self.act_sharding else x)
@@ -105,28 +116,113 @@ class Initializer:
         return nn.Parameter(torch.ones(shape, dtype=dtype, device=self.device))
 
 
-def on_use(p):
+class Kept(NamedTuple):
+    """A 2-d weight that :func:`on_use` left sharded on the FSDP mesh dims
+    ``dims``, where the layer's input is whole: :func:`linear` moves the
+    activation instead of the weight.  ``.T`` is the weight transposed (a
+    tied embedding's logits), kept on the same mesh dims."""
+    w: torch.Tensor
+    dims: Tuple[int, ...]
+
+    @property
+    def T(self) -> "Kept":
+        return Kept(self.w.T, self.dims)
+
+
+def on_use(p, x=None):
     """Parameters as a layer's matmuls use them.  A sharded parameter (a
     DTensor that ``shard_model`` gave an ``on_use`` layout: its spec with
     the FSDP axes dropped) is redistributed to that layout, so its FSDP
     shards are gathered on use and its gradient is reduce-scattered back; a
     module of such parameters comes back as nested dicts of them.  Plain
-    parameters and modules come back as they are."""
+    parameters and modules come back as they are.
+
+    ``x`` is the activation the layer takes.  On a mesh dim where ``x`` is
+    whole (its batch is not split there: a step of one row), every rank
+    would run the same whole product of a gathered weight; a 2-d weight
+    keeps its FSDP shard on such a dim instead, as the reference's GSPMD
+    keeps it, and comes back as a :class:`Kept` for :func:`linear`, which
+    moves the activation (:func:`weight` gives its tensor to other ops)."""
     if isinstance(p, torch.Tensor):
         layout = getattr(p, "on_use", None)
         if layout is None:
             return p
+        kept = _fsdp_kept(p, layout, x)
+        if kept:
+            layout = [p.placements[i] if i in kept else pl for i, pl in enumerate(layout)]
         if torch.is_inference_mode_enabled():
             # (prefill and decode) a redistribute of a parameter that requires
             # grad detaches its result in place there, and torch 2.11's
             # DTensor has no sharding strategy for aten.detach_
             with torch.inference_mode(False):
                 p = p.detach()
-        return p.redistribute(p.device_mesh, layout)
+        w = p.redistribute(p.device_mesh, layout)
+        return Kept(w, kept) if kept else w
     first = next(p.parameters(), None)
     if getattr(first, "on_use", None) is None:
         return p
-    return {k: on_use(v) for k, v in p.items()}
+    return {k: on_use(v, x) for k, v in p.items()}
+
+
+def _fsdp_kept(p, layout, x) -> tuple:
+    """The mesh dims on which the 2-d parameter ``p`` is sharded, its use
+    layout is not (an FSDP dim) and ``x`` is whole."""
+    if p.dim() != 2 or not is_dtensor(x):
+        return ()
+    return tuple(i for i, (pl, use, xpl) in enumerate(zip(p.placements, layout,
+                                                          x.placements))
+                 if pl.is_shard() and not use.is_shard() and xpl.is_replicate())
+
+
+def weight(w) -> torch.Tensor:
+    """The tensor of a weight as :func:`on_use` gave it (a :class:`Kept`
+    one's still sharded on its kept mesh dims)."""
+    return w.w if isinstance(w, Kept) else w
+
+
+def linear(x: torch.Tensor, w) -> torch.Tensor:
+    """``x @ w`` in x's dtype; a :class:`Kept` weight through
+    :func:`sharded_matmul`, whose product comes back whole on its kept
+    mesh dims (a sum of the ranks' partial products, or a gather of their
+    columns)."""
+    if isinstance(w, Kept):
+        return sharded_matmul(x, w.w.to(x.dtype), w.dims)
+    return x @ w.to(x.dtype)
+
+
+def sharded_matmul(x: torch.Tensor, w: torch.Tensor, kept: Tuple[int, ...] = ()
+                   ) -> torch.Tensor:
+    """``x @ w`` for DTensors, run per shard with every layout pinned, so
+    that none is left to DTensor's choice (whose matmul flattens the batch
+    and sequence dims, and so moves an x split on its sequence): x's last
+    dim laid out as w's first (a slice where x is whole and w's first dim is
+    sharded, a gather where x's is sharded and w's is not), w as it is; the
+    product a partial sum where w's first dim is sharded, split on its last
+    dim where w's second is, else laid out as x, and whole on the mesh dims
+    ``kept``.  The gradients come back in the inputs' layouts: x's a partial
+    sum where w's second dim is sharded, w's where x is split on a dim the
+    product keeps (its batch or rows)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from ..train.sharding import pin
+
+    last = x.dim() - 1
+    x = pin(x, [Shard(last) if wp.is_shard(0) else
+                (Replicate() if xp.is_shard(last) else xp)
+                for xp, wp in zip(x.placements, w.placements)])
+    y_pl, x_grad, w_grad = [], [], []
+    for xp, wp in zip(x.placements, w.placements):
+        y_pl.append(Partial() if wp.is_shard(0) else (Shard(last) if wp.is_shard(1) else xp))
+        x_grad.append(Partial() if wp.is_shard(1) else xp)
+        w_grad.append(wp if wp.is_shard() else (Partial() if xp.is_shard() else Replicate()))
+    y = local_map(torch.matmul, out_placements=y_pl,
+                  in_placements=(list(x.placements), list(w.placements)),
+                  in_grad_placements=(x_grad, w_grad), device_mesh=x.device_mesh,
+                  redistribute_inputs=True)(x, w)
+    if not kept:
+        return y
+    return pin(y, [Replicate() if i in kept else pl for i, pl in enumerate(y.placements)])
 
 
 # ---------------------------------------------------------------------------
@@ -183,7 +279,7 @@ def dense_init(ini: Initializer, d_in: int, d_out: int, dtype,
 
 
 def dense_apply(p, x: torch.Tensor) -> torch.Tensor:
-    y = x @ p["w"].to(x.dtype)
+    y = linear(x, p["w"])
     if "b" in p:
         y = y + p["b"].to(x.dtype)
     return y
@@ -199,10 +295,10 @@ def mlp_init(ini: Initializer, d: int, f: int, dtype) -> nn.ParameterDict:
 
 def mlp_apply(p, x: torch.Tensor, act: str) -> torch.Tensor:
     """Gated MLP: SwiGLU (silu) or GeGLU (gelu, tanh form as ``jax.nn.gelu``)."""
-    h = x @ p["wi"].to(x.dtype)
-    g = x @ p["wg"].to(x.dtype)
+    h = linear(x, p["wi"])
+    g = linear(x, p["wg"])
     g = F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")
-    return (h * g) @ p["wo"].to(x.dtype)
+    return linear(h * g, p["wo"])
 
 
 # ---------------------------------------------------------------------------

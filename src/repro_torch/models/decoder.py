@@ -56,7 +56,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ..configs.base import ModelConfig
 from ..kernels._local import is_dtensor
 from .attention import attn_apply, attn_decode, attn_init, init_kv_cache
-from .common import (Initializer, RuntimeConfig, mlp_apply, mlp_init,
+from .common import (Initializer, RuntimeConfig, linear, mlp_apply, mlp_init,
                      norm_apply, norm_init, on_use, resolve_device, softcap)
 from .moe import moe_apply, moe_apply_shardmap, moe_decode, moe_init
 from .recurrent_block import init_rec_cache, rec_apply, rec_decode, rec_init
@@ -188,8 +188,9 @@ class DecoderLM(nn.Module):
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         x = norm_apply(on_use(self.final_norm), x, cfg.norm)
-        head = on_use(self.embed).T if cfg.tie_embeddings else on_use(self.lm_head)
-        logits = softcap((x @ head.to(x.dtype)).float(), cfg.final_softcap)
+        head = (on_use(self.embed, x).T if cfg.tie_embeddings
+                else on_use(self.lm_head, x))
+        logits = softcap(linear(x, head).float(), cfg.final_softcap)
         if cfg.padded_vocab != cfg.vocab_size:
             iota = torch.arange(cfg.padded_vocab, device=logits.device)
             logits = torch.where(iota < cfg.vocab_size, logits, -1e30)
@@ -222,7 +223,7 @@ class DecoderLM(nn.Module):
 
     def _apply_block(self, kind: str, p, x, *, positions, segments):
         cfg, rt = self.cfg, self.rt
-        p = on_use(p)
+        p = on_use(p, x)
         h = rt.hidden(norm_apply(p["norm1"], x, cfg.norm))
         if kind == "ssm":
             return rt.hidden(x + ssm_apply(p["ssm"], h, cfg, rt))
@@ -307,7 +308,7 @@ class DecoderLM(nn.Module):
 
     def _prefill_block(self, kind: str, p, x, cache, positions, segments=None):
         cfg, rt = self.cfg, self.rt
-        p = on_use(p)
+        p = on_use(p, x)
         h = rt.hidden(norm_apply(p["norm1"], x, cfg.norm))
         if kind == "ssm":
             y, state = ssm_apply(p["ssm"], h, cfg, rt, return_state=True)
@@ -343,7 +344,7 @@ class DecoderLM(nn.Module):
 
     def _decode_block(self, kind: str, p, x_t, cache, pos, context_start=None):
         cfg, rt = self.cfg, self.rt
-        p = on_use(p)
+        p = on_use(p, x_t)
         h = rt.hidden(norm_apply(p["norm1"], x_t, cfg.norm))
         if kind == "ssm":
             y, state = ssm_decode(p["ssm"], h, cache, cfg, rt)

@@ -31,9 +31,9 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from ..kernels._local import is_dtensor, per_shard, split_dim
-from ..kernels.flash_attention.ops import QKV_ROLES, gqa_per_shard
-from .attention import attn_apply, attn_decode, attn_init, init_kv_cache
-from .common import (Initializer, RuntimeConfig, dense_apply, mlp_apply,
+from ..kernels.flash_attention.ops import KV_ROLES, Q_ROLES, gqa_per_shard
+from .attention import attn_apply, attn_decode, attn_init, init_kv_cache, out_proj
+from .common import (Initializer, RuntimeConfig, dense_apply, linear, mlp_apply,
                      mlp_init, norm_apply, norm_init, on_use, resolve_device,
                      softcap)
 from .decoder import check_remat, embed_lookup, remat_call, shard_cache, xent_loss
@@ -97,7 +97,7 @@ class EncDecLM(nn.Module):
 
     def _enc_block(self, p, x: torch.Tensor) -> torch.Tensor:
         cfg, rt = self.cfg, self.rt
-        p = on_use(p)
+        p = on_use(p, x)
         x = rt.hidden(x + attn_apply(p["attn"], self._norm(p["norm1"], x), cfg, rt,
                                      causal=False))
         return x + mlp_apply(p["mlp"], self._norm(p["norm2"], x), cfg.act)
@@ -112,7 +112,7 @@ class EncDecLM(nn.Module):
 
     def _dec_block(self, p, x: torch.Tensor, enc_out: torch.Tensor) -> torch.Tensor:
         cfg, rt = self.cfg, self.rt
-        p = on_use(p)
+        p = on_use(p, x)
         x = rt.hidden(x + attn_apply(p["self_attn"], self._norm(p["norm1"], x), cfg,
                                      rt, causal=True))
         x = rt.hidden(x + attn_apply(p["cross_attn"], self._norm(p["norm2"], x), cfg,
@@ -128,8 +128,7 @@ class EncDecLM(nn.Module):
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         x = norm_apply(on_use(self.final_norm), x, cfg.norm)
-        logits = softcap((x @ on_use(self.lm_head).to(x.dtype)).float(),
-                         cfg.final_softcap)
+        logits = softcap(linear(x, on_use(self.lm_head, x)).float(), cfg.final_softcap)
         if cfg.padded_vocab != cfg.vocab_size:
             iota = torch.arange(cfg.padded_vocab, device=logits.device)
             logits = torch.where(iota < cfg.vocab_size, logits, -1e30)
@@ -169,7 +168,7 @@ class EncDecLM(nn.Module):
         """Each decoder layer's (K, V) of the encoder output."""
         B, S, _ = enc_out.shape
         Hkv, dh = self.cfg.n_kv_heads, self.cfg.head_dim
-        cross = [on_use(p["cross_attn"]) for p in self.decoder]
+        cross = [on_use(p["cross_attn"], enc_out) for p in self.decoder]
         return [{"k": split_dim(dense_apply(p["wk"], enc_out), -1, Hkv).reshape(B, S, Hkv, dh),
                  "v": split_dim(dense_apply(p["wv"], enc_out), -1, Hkv).reshape(B, S, Hkv, dh)}
                 for p in cross]
@@ -189,7 +188,8 @@ class EncDecLM(nn.Module):
                              f"{self_cache[0]['k'].shape[1]} slots: raise "
                              "RuntimeConfig.max_cache_len")
         cross = self._cross_kv(enc_out)
-        for p, sc, cr in zip(map(on_use, self.decoder), self_cache, cross):
+        for p, sc, cr in zip(self.decoder, self_cache, cross):
+            p = on_use(p, x)
             mix, (k, v) = attn_apply(p["self_attn"], self._norm(p["norm1"], x),
                                      cfg, rt, positions=positions, causal=True,
                                      return_kv=True)
@@ -208,7 +208,8 @@ class EncDecLM(nn.Module):
         cfg, rt = self.cfg, self.rt
         x = self._embed(token)
         new_self = []
-        for p, sc, cr in zip(map(on_use, self.decoder), cache["self"], cache["cross"]):
+        for p, sc, cr in zip(self.decoder, cache["self"], cache["cross"]):
+            p = on_use(p, x)
             mix, sc = attn_decode(p["self_attn"], self._norm(p["norm1"], x),
                                   sc, pos, cfg, rt)
             new_self.append(sc)
@@ -229,11 +230,11 @@ def _cross_apply(p, x: torch.Tensor, cross_kv: Dict[str, torch.Tensor],
     k, v = cross_kv["k"], cross_kv["v"]
     if is_dtensor(q):
         k, v = gqa_per_shard(q, k, v)
-        out = per_shard(_cross_core, (q, k, v), (QKV_ROLES,) * 3, QKV_ROLES,
-                        heads=(Hq, k.shape[2]))
+        out = per_shard(_cross_core, (q, k, v), (Q_ROLES, KV_ROLES, KV_ROLES),
+                        Q_ROLES, heads=(Hq, k.shape[2]))
     else:
         out = _cross_core(q, k, v)
-    return out.reshape(B, S, Hq * dh).to(x.dtype) @ p["wo"]["w"].to(x.dtype)
+    return out_proj(out.reshape(B, S, Hq * dh).to(x.dtype), p["wo"]["w"])
 
 
 def _cross_core(q, k, v):

@@ -40,7 +40,7 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from ..kernels._local import is_dtensor, per_shard, shard_layout
-from .common import Initializer, RuntimeConfig
+from .common import Initializer, RuntimeConfig, linear, weight
 
 __all__ = ["moe_init", "moe_apply", "moe_apply_shardmap", "moe_decode",
            "moe_groups"]
@@ -59,7 +59,7 @@ def moe_init(ini: Initializer, cfg: ModelConfig, dtype) -> nn.ParameterDict:
 def _route(p, x: torch.Tensor, cfg: ModelConfig):
     """Router logits and top-k in fp32.  x: (..., D) -> gates and expert ids
     (..., K), the first the top choice, and the probabilities (..., E)."""
-    logits = x.float() @ p["router"].float()
+    logits = linear(x.float(), p["router"])
     probs = torch.softmax(logits, dim=-1)
     gate, idx = torch.topk(probs, cfg.experts_per_token, dim=-1, sorted=True)
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
@@ -123,7 +123,7 @@ def _moe_per_shard(fn, p, x: torch.Tensor, cfg: ModelConfig, with_aux: bool):
         out = fn({"router": router, "wi": wi, "wg": wg, "wo": wo}, x)
         return (out[0], out[1] / n) if with_aux else out
 
-    args = (x, p["router"], p["wi"], p["wg"], p["wo"])
+    args = (x, weight(p["router"]), p["wi"], p["wg"], p["wo"])
     roles = (_TOKENS, (None, None), _W_IN, _W_IN, _W_OUT)
     if with_aux:
         return per_shard(local, args, roles, [_TOKENS, ()], heads=(cfg.moe_d_ff,),
@@ -269,7 +269,7 @@ def _shardmap_dtensor(p, x, cfg: ModelConfig, rt: RuntimeConfig):
         return w.to_local(grad_placements=grad)
 
     ea = rules.expert_axis or "data"
-    lp = {"router": local(p["router"], None),
+    lp = {"router": local(weight(p["router"]), None),
           **{k: local(p[k], ea) for k in ("wi", "wg", "wo")}}
     y, aux = moe_apply_shardmap(lp, xl, cfg, rt, local_experts=True)
     y = DTensor.from_local(y, mesh, x_pl, run_check=False, shape=x.shape,

@@ -20,7 +20,7 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from ..kernels.rglru import rglru, rglru_step
-from .common import Initializer, RuntimeConfig
+from .common import Initializer, RuntimeConfig, linear
 
 __all__ = ["rec_init", "rec_apply", "rec_decode", "init_rec_cache"]
 
@@ -57,16 +57,16 @@ def _conv(conv_w, conv_b, x, conv_state=None):
 def rec_apply(params, x: torch.Tensor, cfg: ModelConfig, rt: RuntimeConfig,
               initial: Optional[Dict] = None, return_state: bool = False):
     """Full-sequence recurrent block.  x: (B, S, D)."""
-    bx = x @ params["in_x"].to(x.dtype)
-    by = F.gelu(x @ params["in_y"].to(x.dtype), approximate="tanh")
+    bx = linear(x, params["in_x"])
+    by = F.gelu(linear(x, params["in_y"]), approximate="tanh")
     conv_in = initial["conv"] if initial is not None else None
     bx, conv_state = _conv(params["conv_w"].to(x.dtype),
                            params["conv_b"].to(x.dtype), bx, conv_in)
-    r = bx @ params["gate_r"].to(x.dtype)
-    i = bx @ params["gate_i"].to(x.dtype)
+    r = linear(bx, params["gate_r"])
+    i = linear(bx, params["gate_i"])
     h0 = initial["h"] if initial is not None else None
     y, h = rglru(bx, r, i, params["lam"], h0, impl=rt.rglru_impl)
-    out = (y * by) @ params["out"].to(x.dtype)
+    out = linear(y * by, params["out"])
     if return_state:
         return out, {"h": h, "conv": conv_state}
     return out
@@ -85,12 +85,12 @@ def init_rec_cache(cfg: ModelConfig, batch: int, dtype,
 def rec_decode(params, x_t: torch.Tensor, cache: Dict, cfg: ModelConfig,
                rt: RuntimeConfig):
     """One-token step.  x_t: (B, 1, D); cache: {"h", "conv"}."""
-    bx = x_t @ params["in_x"].to(x_t.dtype)
-    by = F.gelu(x_t @ params["in_y"].to(x_t.dtype), approximate="tanh")
+    bx = linear(x_t, params["in_x"])
+    by = F.gelu(linear(x_t, params["in_y"]), approximate="tanh")
     bx, conv_state = _conv(params["conv_w"].to(x_t.dtype),
                            params["conv_b"].to(x_t.dtype), bx, cache["conv"])
-    r = bx @ params["gate_r"].to(x_t.dtype)
-    i = bx @ params["gate_i"].to(x_t.dtype)
+    r = linear(bx, params["gate_r"])
+    i = linear(bx, params["gate_i"])
     y, h = rglru_step(cache["h"], bx[:, 0], r[:, 0], i[:, 0], params["lam"])
-    out = (y[:, None] * by) @ params["out"].to(x_t.dtype)
+    out = linear(y[:, None] * by, params["out"])
     return out, {"h": h, "conv": conv_state}

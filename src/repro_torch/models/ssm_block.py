@@ -20,7 +20,7 @@ from torch import nn
 from ..configs.base import ModelConfig
 from ..kernels._local import split_dim
 from ..kernels.ssd import ssd, ssd_step
-from .common import Initializer, RuntimeConfig, rmsnorm
+from .common import Initializer, RuntimeConfig, linear, rmsnorm
 
 __all__ = ["ssm_init", "ssm_apply", "ssm_decode", "init_ssm_cache"]
 
@@ -74,7 +74,7 @@ def ssm_apply(params, x: torch.Tensor, cfg: ModelConfig, rt: RuntimeConfig,
     """Full-sequence Mamba-2 mixer.  x: (B, S, D)."""
     B, S, D = x.shape
     Din, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
-    proj = x @ params["in_proj"].to(x.dtype)
+    proj = linear(x, params["in_proj"])
     # z, xbc and dt (and then x, B and C) do not fall on the shards of a
     # tensor-parallel last dim: gather it before the split, whose gradient
     # then comes back sharded as the matmul's output was
@@ -96,7 +96,7 @@ def ssm_apply(params, x: torch.Tensor, cfg: ModelConfig, rt: RuntimeConfig,
     # heads are (as attention's output projection)
     y = split_dim(y.reshape(B, S, Din), -1, H).to(x.dtype)
     y = rmsnorm(y * F.silu(z), params["norm_scale"])
-    out = y @ params["out_proj"].to(x.dtype)
+    out = linear(y, params["out_proj"])
     if return_state:
         return out, {"ssd": final, "conv": conv_state}
     return out
@@ -117,7 +117,7 @@ def ssm_decode(params, x_t: torch.Tensor, cache: Dict, cfg: ModelConfig,
     """One-token step.  x_t: (B, 1, D); cache: {"ssd", "conv"}."""
     B = x_t.shape[0]
     Din, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
-    proj = x_t @ params["in_proj"].to(x_t.dtype)
+    proj = linear(x_t, params["in_proj"])
     z, xbc, dt_raw = _split_proj(cfg, proj)
     xbc, conv_state = _conv_scan(params["conv_w"].to(x_t.dtype),
                                  params["conv_b"].to(x_t.dtype),
@@ -131,5 +131,5 @@ def ssm_decode(params, x_t: torch.Tensor, cache: Dict, cfg: ModelConfig,
         * xs.reshape(B, 1, H, P).float()
     y = y.reshape(B, 1, Din).to(x_t.dtype)
     y = rmsnorm(y * F.silu(z), params["norm_scale"])
-    out = y @ params["out_proj"].to(x_t.dtype)
+    out = linear(y, params["out_proj"])
     return out, {"ssd": new_state, "conv": conv_state}

@@ -49,7 +49,7 @@ from ..weights import jax_layout
 
 __all__ = ["ShardingRules", "param_specs", "batch_specs", "cache_specs",
            "opt_state_specs", "named", "constrain", "local_shard",
-           "from_local", "from_global", "shard_model", "shard_tree",
+           "from_local", "from_global", "shard_model", "shard_tree", "pin",
            "local_shape", "use_spec",
            "ActivationSharding", "Sharding", "mesh_axis_names", "mesh_shape"]
 
@@ -469,15 +469,22 @@ def constrain(x, rules: ShardingRules, spec: Sequence):
     gradient left a partial sum would otherwise let the next matmul's
     backward gather its weight and run the whole product on every rank); a
     plain tensor is returned as it is (one process holds the whole of it)."""
+    return pin(x, _placements(rules.mesh, spec))
+
+
+def pin(x, placements: Sequence):
+    """:func:`constrain` in DTensor placements: ``x`` redistributed to
+    ``placements`` on its own mesh, its gradient to the same layout; a plain
+    tensor as it is."""
     from torch.distributed.tensor import DTensor
 
     if not isinstance(x, DTensor):
         return x
-    placements = _placements(rules.mesh, spec)
-    y = x.redistribute(rules.mesh, placements)
+    mesh, placements = x.device_mesh, tuple(placements)
+    y = x.redistribute(mesh, placements)
     if not y.requires_grad:
         return y
-    return DTensor.from_local(y.to_local(grad_placements=placements), rules.mesh,
+    return DTensor.from_local(y.to_local(grad_placements=placements), mesh,
                               placements, run_check=False, shape=y.shape,
                               stride=y.stride())
 
@@ -528,13 +535,30 @@ class ActivationSharding:
         ea = r.axis_if_divides(r.expert_axis, x.shape[1])
         return constrain(x, r, (None, ea, None, None))
 
+    def _seq_mode(self, x) -> bool:
+        r = self.rules
+        return (r.attn_shard_mode == "seq" and x.shape[1] > 1
+                and x.shape[1] % max(r.size(r.tp_axis), 1) == 0)
+
     def heads(self, x):
         """(B, S, H, dh) q/k/v: heads over tp when divisible (else
-        replicated), or the sequence over tp in mode "seq"."""
+        replicated), or the sequence over tp in mode "seq" (context
+        parallelism: the attention then splits the query rows over tp and
+        gathers K/V, ``kernels/_local.py``, and its output stays sharded on
+        the sequence)."""
         r = self.rules
         b_axes = r.batch_spec_axes(x.shape[0])
-        if (r.attn_shard_mode == "seq" and x.shape[1] % max(r.size(r.tp_axis), 1) == 0
-                and x.shape[1] > 1):
+        if self._seq_mode(x):
             return constrain(x, r, (b_axes, r.tp_axis, None, None))
         return constrain(x, r, (b_axes, None, r.axis_if_divides(r.tp_axis, x.shape[2]),
                                 None))
+
+    def attn_seq(self, x):
+        """(B, S, H * dh) q/k/v projections in mode "seq": the sequence over
+        tp before the heads' view, as :meth:`heads` lays them out (an
+        all-to-all of the projection's shards; heads that do not divide tp
+        would otherwise be gathered whole first); else left alone."""
+        r = self.rules
+        if not self._seq_mode(x):
+            return x
+        return constrain(x, r, (r.batch_spec_axes(x.shape[0]), r.tp_axis, None))
