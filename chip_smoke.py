@@ -136,7 +136,11 @@ Phases (any failure exits non-zero before the last line is printed):
    the statuses of tests/test_torch_dryrun_grid_auto.py, every term
    positive, every ``ok`` cell's ``hlo_flops`` at most the reference's
    (``GRID_REFERENCE_FLOPS``) and the one-row long_500k cells' equal to the
-   CPU trace's (``GRID_SANDBOX_LONG_FLOPS``).
+   CPU trace's (``GRID_SANDBOX_LONG_FLOPS``), and every ``ok`` cell's
+   ``wire_bytes`` at most the reference's (``GRID_REFERENCE_WIRE``) and
+   equal to the CPU trace's with torch 2.13 (``GRID_SANDBOX_WIRE``): no
+   layout of the traced steps is left to DTensor's choice, which differs
+   between torch versions.
 
 With ``--profile``, phases 3, 4, 4b and 4c also trace one prefill of their
 first measured wave and 8 decode steps under ``torch.profiler`` and print
@@ -1840,10 +1844,84 @@ GRID_REFERENCE_FLOPS = {
 # that step is left to DTensor's choice, which differed between versions.
 GRID_SANDBOX_LONG_FLOPS = {
     ("mamba2-1.3b", "long_500k"): 13635584.0,
-    ("mixtral-8x22b", "long_500k"): 1460404224.0,
+    ("mixtral-8x22b", "long_500k"): 1450082304.0,
     ("recurrentgemma-9b", "long_500k"): 99713024.0,
 }
 
+# ... and its wire_bytes at most the reference's record of the same cell
+# (the same command; the bytes a device moves in collectives, by the
+# reference's formulas) ...
+GRID_REFERENCE_WIRE = {
+    ("arctic-480b", "decode_32k"): 110587333632.0,
+    ("arctic-480b", "prefill_32k"): 653656392719.0,
+    ("arctic-480b", "train_4k"): 456204011644.6875,
+    ("gemma2-9b", "decode_32k"): 146044152320.0,
+    ("gemma2-9b", "prefill_32k"): 121111708175.0,
+    ("gemma2-9b", "train_4k"): 126432243719.53125,
+    ("gemma3-12b", "decode_32k"): 56052123136.0,
+    ("gemma3-12b", "prefill_32k"): 142888163599.0,
+    ("gemma3-12b", "train_4k"): 160937687230.78125,
+    ("internvl2-2b", "decode_32k"): 73608528384.0,
+    ("internvl2-2b", "prefill_32k"): 31199164431.0,
+    ("internvl2-2b", "train_4k"): 90958563230.5,
+    ("mamba2-1.3b", "decode_32k"): 341849408.0,
+    ("mamba2-1.3b", "long_500k"): 1627663.5,
+    ("mamba2-1.3b", "prefill_32k"): 84127768576.0,
+    ("mamba2-1.3b", "train_4k"): 178533969182.0,
+    ("mixtral-8x22b", "decode_32k"): 44320289536.0,
+    ("mixtral-8x22b", "long_500k"): 3373598127.5,
+    ("mixtral-8x22b", "prefill_32k"): 733078497295.0,
+    ("qwen2.5-32b", "decode_32k"): 204968149504.0,
+    ("qwen2.5-32b", "prefill_32k"): 288099544079.0,
+    ("qwen2.5-32b", "train_4k"): 434459289671.71875,
+    ("recurrentgemma-9b", "decode_32k"): 2428304725.333333,
+    ("recurrentgemma-9b", "long_500k"): 4498636.166666666,
+    ("recurrentgemma-9b", "prefill_32k"): 72390247780.33333,
+    ("recurrentgemma-9b", "train_4k"): 125531340258.28125,
+    ("seamless-m4t-medium", "decode_32k"): 404827712.0,
+    ("seamless-m4t-medium", "prefill_32k"): 94643894432.0,
+    ("seamless-m4t-medium", "train_4k"): 100949889988.0,
+    ("stablelm-1.6b", "decode_32k"): 1098179072.0,
+    ("stablelm-1.6b", "prefill_32k"): 30131468333.0,
+    ("stablelm-1.6b", "train_4k"): 129545867279.0,
+}
+# ... and equal to the port's trace of it with torch 2.13 on the CPU
+# (python -m repro_torch.launch.dryrun --device cpu --all --mesh single
+# --roofline --layout auto): every layout of the traced steps is pinned.
+GRID_SANDBOX_WIRE = {
+    ("arctic-480b", "decode_32k"): 58957486560.0,
+    ("arctic-480b", "prefill_32k"): 141887033280.0,
+    ("arctic-480b", "train_4k"): 297566492745.0,
+    ("gemma2-9b", "decode_32k"): 809971680.0,
+    ("gemma2-9b", "prefill_32k"): 49922966400.0,
+    ("gemma2-9b", "train_4k"): 114124792380.0,
+    ("gemma3-12b", "decode_32k"): 371082720.0,
+    ("gemma3-12b", "prefill_32k"): 67694143680.0,
+    ("gemma3-12b", "train_4k"): 144650707260.0,
+    ("internvl2-2b", "decode_32k"): 776532960.0,
+    ("internvl2-2b", "prefill_32k"): 9521358720.0,
+    ("internvl2-2b", "train_4k"): 87119846437.5,
+    ("mamba2-1.3b", "decode_32k"): 25377120.0,
+    ("mamba2-1.3b", "long_500k"): 1321627.5,
+    ("mamba2-1.3b", "prefill_32k"): 23628684480.0,
+    ("mamba2-1.3b", "train_4k"): 69127776045.0,
+    ("mixtral-8x22b", "decode_32k"): 1294034400.0,
+    ("mixtral-8x22b", "long_500k"): 86634127.5,
+    ("mixtral-8x22b", "prefill_32k"): 122093268480.0,
+    ("qwen2.5-32b", "decode_32k"): 5197955040.0,
+    ("qwen2.5-32b", "prefill_32k"): 82742736000.0,
+    ("qwen2.5-32b", "train_4k"): 385429908540.0,
+    ("recurrentgemma-9b", "decode_32k"): 90033120.0,
+    ("recurrentgemma-9b", "long_500k"): 3996817.5,
+    ("recurrentgemma-9b", "prefill_32k"): 23866923520.0,
+    ("recurrentgemma-9b", "train_4k"): 116110110780.0,
+    ("seamless-m4t-medium", "decode_32k"): 9988320.0,
+    ("seamless-m4t-medium", "prefill_32k"): 10404054720.0,
+    ("seamless-m4t-medium", "train_4k"): 41588221477.5,
+    ("stablelm-1.6b", "decode_32k"): 18770400.0,
+    ("stablelm-1.6b", "prefill_32k"): 14980945920.0,
+    ("stablelm-1.6b", "train_4k"): 62467307557.5,
+}
 
 def dryrun_child() -> None:
     """Phase 8's subprocess: (a) and (b) of the module docstring, printed as
@@ -1912,7 +1990,8 @@ def grid_faults(cells: list) -> list:
     ``GRID_ERRORS``, else ``ok``), and an ``ok`` cell's per-superblock
     counts and roofline terms are positive, its useful-FLOPs ratio in
     (0, 1.05], its ``hlo_flops`` at most ``GRID_REFERENCE_FLOPS``' and, at
-    long_500k, equal to ``GRID_SANDBOX_LONG_FLOPS``'."""
+    long_500k, equal to ``GRID_SANDBOX_LONG_FLOPS``', its ``wire_bytes`` at
+    most ``GRID_REFERENCE_WIRE``'s and equal to ``GRID_SANDBOX_WIRE``'s."""
     from repro_torch.configs import cell_runnable
 
     faults = []
@@ -1937,6 +2016,12 @@ def grid_faults(cells: list) -> list:
             if key in GRID_SANDBOX_LONG_FLOPS and c["hlo_flops"] != GRID_SANDBOX_LONG_FLOPS[key]:
                 faults.append(f"{key}: hlo_flops {c['hlo_flops']}, not the CPU trace's "
                               f"{GRID_SANDBOX_LONG_FLOPS[key]}")
+            if c["wire_bytes"] > GRID_REFERENCE_WIRE[key]:
+                faults.append(f"{key}: wire_bytes {c['wire_bytes']} over the reference's "
+                              f"{GRID_REFERENCE_WIRE[key]}")
+            if c["wire_bytes"] != GRID_SANDBOX_WIRE[key]:
+                faults.append(f"{key}: wire_bytes {c['wire_bytes']}, not the CPU trace's "
+                              f"{GRID_SANDBOX_WIRE[key]}")
     return faults
 
 

@@ -18,7 +18,14 @@ batched matmuls a strided shard it cannot propagate).
 Each input and output is described by its roles, one a dim: ``"batch"``,
 ``"heads"``, ``"rows"`` (a split of the query sequence: the keys and values
 stay whole on those mesh dims, and each rank's rows start at
-:func:`row_offset`) or ``None`` (whole on every rank).
+:func:`row_offset`), ``"inner"`` (a dim the op contracts: its outputs are
+partial sums there) or ``None`` (whole on every rank).  With ``heads=None``
+the op runs in the anchor's own layout (a decode state's: each mesh dim
+takes the role of the dim it shards), so that the state never moves.
+
+:func:`regroup` splits a tensor sharded on its last dim into pieces that
+are each sharded evenly, with one all-to-all of the elements that change
+rank (a projection whose outputs do not fall on its shards' bounds).
 """
 
 from __future__ import annotations
@@ -27,7 +34,9 @@ from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
-__all__ = ["is_dtensor", "per_shard", "row_offset", "shard_layout", "split_dim"]
+__all__ = ["block_index", "is_dtensor", "last_row", "move_split", "one_row",
+           "per_shard", "regroup", "row_offset", "rows_split", "shard_layout",
+           "split_dim"]
 
 Roles = Tuple[Optional[str], ...]
 
@@ -62,6 +71,140 @@ def split_dim(x, dim: int, parts: int):
                 pl = Replicate()
         out.append(pl)
     return x.redistribute(x.device_mesh, out)
+
+
+def one_row(x) -> bool:
+    """One token a row: ``x`` is (B, 1, ...), a decode step's tokens or
+    activations.  The layouts that differ there (the FSDP shards kept,
+    ``models/common.py::on_use``, and the stream split on d_model,
+    ``train/sharding.py::ActivationSharding.hidden``) both ask this."""
+    return x.dim() >= 2 and x.shape[1] == 1
+
+
+def rows_split(x) -> Tuple[int, ...]:
+    """The mesh dims that split the sequence (dim 1, more than one row) of
+    the DTensor ``x`` (a sequence-parallel activation); () for others."""
+    if not is_dtensor(x) or x.dim() < 3 or x.shape[1] <= 1:
+        return ()
+    return tuple(i for i, pl in enumerate(x.placements) if pl.is_shard(1))
+
+
+def block_index(mesh, dims: Sequence[int]) -> Tuple[int, int]:
+    """This rank's block of a tensor dim split over the mesh dims ``dims``,
+    in mesh order (as DTensor splits a dim over several mesh dims), and the
+    number of blocks.  The coordinate comes from
+    ``DeviceMesh.get_local_rank``: 0 on the dry-run's rank 0."""
+    index, n = 0, 1
+    for i in dims:
+        index, n = index * mesh.size(i) + mesh.get_local_rank(i), n * mesh.size(i)
+    return index, n
+
+
+def move_split(x, src, dst: int, dims: Optional[Sequence[int]] = None, *,
+               whole_rest: bool = False):
+    """``x`` with its split on dim ``src`` (or, for ``src="partial"``, its
+    partial sums) moved to dim ``dst`` on the mesh dims ``dims`` (default:
+    every mesh dim that holds it), in mesh order while ``dst`` divides and
+    no other mesh dim splits ``dst``: an all-to-all each (a reduce-scatter
+    for a partial sum).  Those where it does not are made whole where
+    ``whole_rest``, else left as they are.  A plain tensor as it is."""
+    if not is_dtensor(x) or (dims is not None and not dims):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+
+    holds = ((lambda pl: pl.is_partial()) if src == "partial"
+             else (lambda pl: pl.is_shard(src % x.dim())))
+    mesh, dst, n = x.device_mesh, dst % x.dim(), 1
+    free = not any(pl.is_shard(dst) for pl in x.placements)
+    out = list(x.placements)
+    for i, pl in enumerate(x.placements):
+        if not holds(pl) or (dims is not None and i not in dims):
+            continue
+        if free and x.shape[dst] % (n * mesh.size(i)) == 0:
+            n *= mesh.size(i)
+            out[i] = Shard(dst)
+        elif whole_rest:
+            out[i] = Replicate()
+    return x.redistribute(mesh, out)
+
+
+def last_row(x):
+    """``x[:, -1:]``.  For a DTensor split on its sequence, the rank that
+    holds the last row gives it and the others zeros, summed over the mesh
+    dims that split the rows (slicing the split dim would gather it)."""
+    dims = rows_split(x)
+    if not dims:
+        return x[:, -1:]
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = x.device_mesh
+    holds = all(mesh.get_local_rank(i) == mesh.size(i) - 1 for i in dims)
+    pl = list(x.placements)
+    out = local_map(lambda t: t[:, -1:] if holds else torch.zeros_like(t[:, -1:]),
+                    out_placements=[Partial() if i in dims else p for i, p in enumerate(pl)],
+                    in_placements=(pl,), device_mesh=mesh)(x)
+    return out.redistribute(mesh, [Replicate() if i in dims else p for i, p in enumerate(pl)])
+
+
+def regroup(x, sizes: Sequence[int]):
+    """``torch.split(x, sizes, dim=-1)``, each piece sharded evenly on its
+    last dim over the mesh dim that shards x's (x a DTensor whose last dim
+    one mesh dim shards, and whose sizes all divide by that dim's size).
+    Each rank sends the elements of its shard that another rank's pieces
+    hold in one all-to-all (its gradient the reverse one).  Otherwise x is
+    gathered on its last dim (:func:`split_dim`) and split; a plain tensor
+    is just split."""
+    if not is_dtensor(x):
+        return torch.split(x, sizes, dim=-1)
+    last = x.dim() - 1
+    dims = [i for i, pl in enumerate(x.placements) if pl.is_shard(last)]
+    n = x.device_mesh.size(dims[0]) if len(dims) == 1 else 0
+    if not n or any(s % n for s in sizes):
+        return torch.split(split_dim(x, -1, 1), sizes, dim=-1)
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import DTensor
+
+    mesh, m = x.device_mesh, dims[0]
+    rank, chunk = mesh.get_local_rank(m), x.shape[-1] // n
+    starts = [sum(sizes[:j]) for j in range(len(sizes))]
+
+    def span(q, j, r):
+        """Global [lo, hi) of piece j that rank q holds after and rank r before."""
+        c = sizes[j] // n
+        return (max(starts[j] + q * c, r * chunk),
+                min(starts[j] + (q + 1) * c, (r + 1) * chunk))
+
+    send, in_splits = [], []
+    for q in range(n):
+        parts = [range(lo - rank * chunk, hi - rank * chunk)
+                 for lo, hi in (span(q, j, rank) for j in range(len(sizes))) if lo < hi]
+        send += [i for p in parts for i in p]
+        in_splits.append(sum(map(len, parts)))
+    # The received elements come by source rank; each piece gathers its own.
+    seg, out_splits, at = {}, [], 0
+    for r in range(n):
+        for j in range(len(sizes)):
+            lo, hi = span(rank, j, r)
+            if lo < hi:
+                seg[j, r] = range(at, at + hi - lo)
+                at += hi - lo
+        out_splits.append(at - sum(out_splits))
+    order = [i for j in range(len(sizes)) for r in range(n) for i in seg.get((j, r), ())]
+    dev = x.to_local().device
+    local = x.to_local().index_select(-1, torch.tensor(send, device=dev))
+    a2a = (funcol.all_to_all_single_autograd if local.requires_grad
+           else funcol.all_to_all_single)
+    got = a2a(local.movedim(-1, 0).contiguous(), out_splits, in_splits, (mesh, m))
+    got = got.movedim(0, -1).index_select(-1, torch.tensor(order, device=dev))
+    out = []
+    for piece, size in zip(torch.split(got, [s // n for s in sizes], dim=-1), sizes):
+        shape = torch.Size(tuple(x.shape[:-1]) + (size,))
+        out.append(DTensor.from_local(piece.contiguous(), mesh, x.placements,
+                                      run_check=False,
+                                      shape=shape,
+                                      stride=torch.empty(shape, device="meta").stride()))
+    return out
 
 
 def shard_layout(anchor, anchor_roles: Roles, heads: Sequence[int], *,
@@ -107,13 +250,9 @@ def shard_layout(anchor, anchor_roles: Roles, heads: Sequence[int], *,
 def row_offset(mesh, layout, local_rows: int) -> int:
     """The index of this rank's first query row: its block of rows over the
     mesh dims of ``layout`` that carry ``"rows"``, in mesh order (as DTensor
-    splits a dim over several mesh dims), times ``local_rows``.  The
-    coordinate comes from ``DeviceMesh.get_local_rank``: 0 on the dry-run's
-    rank 0."""
-    index = 0
-    for i, role in enumerate(layout):
-        if role == "rows":
-            index = index * mesh.size(i) + mesh.get_local_rank(i)
+    splits a dim over several mesh dims, :func:`block_index`), times
+    ``local_rows``."""
+    index, _ = block_index(mesh, [i for i, role in enumerate(layout) if role == "rows"])
     return index * local_rows
 
 
@@ -134,7 +273,7 @@ def _placements(layout, roles: Optional[Roles], partial_over: Sequence[str] = ()
 
 
 def per_shard(fn: Callable, args: Sequence, in_roles: Sequence[Optional[Roles]],
-              out_roles, *, heads: Sequence[int], anchor: int = 0,
+              out_roles, *, heads: Optional[Sequence[int]], anchor: int = 0,
               partial_over: Sequence[Sequence[str]] = ()):
     """``fn(*args)`` on each rank's shards of the DTensors in ``args``.
 
@@ -142,7 +281,9 @@ def per_shard(fn: Callable, args: Sequence, in_roles: Sequence[Optional[Roles]],
     or an absent optional tensor), ``out_roles`` those of ``fn``'s output(s)
     (a tuple of roles for one output, a list of them for several).
     ``heads`` are the sizes that the mesh dims which do not carry the batch
-    must divide to shard the heads role.  An output whose entry of
+    must divide to shard the heads role; ``heads=None`` runs in the anchor's
+    own layout (each mesh dim carries the role of the anchor dim it shards,
+    none where the anchor is whole).  An output whose entry of
     ``partial_over`` names a role is left as a partial sum over the mesh dims
     of that role (its shards are summands, as a row-parallel matmul's).
     Plain tensors among ``args`` are taken as replicated.  The gradient of
@@ -156,16 +297,21 @@ def per_shard(fn: Callable, args: Sequence, in_roles: Sequence[Optional[Roles]],
     if not isinstance(args[anchor], DTensor):
         anchor = next(i for i, a in enumerate(args)
                       if isinstance(a, DTensor) and in_roles[i] is not None)
-    mesh, layout = shard_layout(args[anchor], in_roles[anchor], heads)
+    if heads is None:
+        mesh = args[anchor].device_mesh
+        layout = [in_roles[anchor][pl.dim] if pl.is_shard() else None
+                  for pl in args[anchor].placements]
+    else:
+        mesh, layout = shard_layout(args[anchor], in_roles[anchor], heads)
     args = [DTensor.from_local(a, mesh, _placements(layout, (None,) * a.dim()),
                                run_check=False)
             if isinstance(a, torch.Tensor) and not isinstance(a, DTensor) else a
             for a in args]
     in_pl = tuple(_placements(layout, r) for r in in_roles)
     # An input whole on a mesh dim that splits the work (the batch, the
-    # heads or the rows) gets a share of its gradient from each rank there:
-    # a partial sum.
-    grad_pl = tuple(_placements(layout, r, partial_over=("batch", "heads", "rows"))
+    # heads, the rows or a contracted dim) gets a share of its gradient from
+    # each rank there: a partial sum.
+    grad_pl = tuple(_placements(layout, r, partial_over=("batch", "heads", "rows", "inner"))
                     for r in in_roles)
     many = isinstance(out_roles, list)
     outs = out_roles if many else [out_roles]

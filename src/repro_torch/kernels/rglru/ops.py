@@ -6,7 +6,7 @@ back: a CUDA tensor under ``"cuda"`` or ``"auto"`` launches the kernel or
 raises.  The kernel's launch count is ``kernel.rglru_cuda.launches``.
 DTensor inputs run per shard (:func:`repro_torch.kernels._local.per_shard`):
 the batch where x shards it, the channels over the other mesh dims where
-they divide.
+they divide; the decode step in its state's own layout.
 
 :func:`_rglru_chunked` repeats the kernel's blocking and its evaluation of
 1 - a^2 (chunk aggregates, the chained look-back, the apply pass) in plain
@@ -63,11 +63,12 @@ _H = ("batch", "heads")                         # (B, W)
 
 
 def rglru_step(h, x_t, r_t, i_t, lam):
-    """Single-token decode step (plain torch; the op is tiny)."""
+    """Single-token decode step (plain torch; the op is tiny).  With
+    DTensors, elementwise in the state's own layout (``cache_specs`` shards
+    its width): nothing moves where the inputs arrive laid out as h."""
     if is_dtensor(x_t) or is_dtensor(h):
         return per_shard(rglru_step_reference, (h, x_t, r_t, i_t, lam),
-                         (_H, _H, _H, _H, ("heads",)), [_H, _H],
-                         heads=(x_t.shape[1],), anchor=1)
+                         (_H, _H, _H, _H, ("heads",)), [_H, _H], heads=None)
     return rglru_step_reference(h, x_t, r_t, i_t, lam)
 
 

@@ -6,7 +6,8 @@ picks it by dtype and shape) and runs the kernels' plain version,
 under ``"cuda"`` or ``"auto"`` launches a kernel or raises.  The launch counts
 are ``kernel.ssd_cuda.launches`` and ``.wgmma_launches``.  DTensor inputs
 run per shard (:func:`repro_torch.kernels._local.per_shard`): the batch where
-x shards it, the heads over the other mesh dims where they divide.
+x shards it, the heads over the other mesh dims where they divide; the
+decode step in its state's own layout (:func:`ssd_step`).
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .._local import is_dtensor, per_shard
+from .._local import is_dtensor, move_split, per_shard
 from .ref import ssd_reference, ssd_step_reference
 
 __all__ = ["ssd", "ssd_step"]
@@ -58,18 +59,29 @@ _X = ("batch", None, "heads", None)             # (B, S, H, P)
 _A = ("batch", None, "heads")                   # (B, S, H)
 _BC = ("batch", None, None)                     # (B, S, N)
 _STATE = ("batch", "heads", None, None)         # (B, H, P, N)
-_X_T = ("batch", "heads", None)                 # (B, H, P): one step's x
+# The decode state runs in its own layout (``cache_specs`` shards its last
+# dim, N): the update is local given B's slice of N, and y = C . state
+# contracts N, so y leaves each rank as a partial sum.
+_STATE_T = ("batch", "heads", None, "inner")    # (B, H, P, N)
+_X_T = ("batch", "heads", None)                 # (B, H, P): one step's x, and y
 _A_T = ("batch", "heads")                       # (B, H)
-_BC_T = ("batch", None)                         # (B, N)
+_BC_T = ("batch", "inner")                      # (B, N)
 
 
 def ssd_step(state, x_t, a_t, b_t, c_t):
-    """Single-token decode step (plain torch; the op is tiny)."""
-    if is_dtensor(x_t) or is_dtensor(state):
-        return per_shard(ssd_step_reference, (state, x_t, a_t, b_t, c_t),
-                         (_STATE, _X_T, _A_T, _BC_T, _BC_T), [_X_T, _STATE],
-                         heads=(x_t.shape[1],), anchor=1)
-    return ssd_step_reference(state, x_t, a_t, b_t, c_t)
+    """Single-token decode step (plain torch; the op is tiny).  With
+    DTensors, in the state's own layout: y's partial sums over N's shards
+    are reduce-scattered onto its heads (all-reduced where the heads do not
+    divide the mesh dim) in fp32, then cast to x's dtype."""
+    if not (is_dtensor(x_t) or is_dtensor(state)):
+        return ssd_step_reference(state, x_t, a_t, b_t, c_t)
+    def local(state, x_t, a_t, b_t, c_t):
+        return ssd_step_reference(state, x_t.float(), a_t, b_t, c_t)
+
+    y, state = per_shard(local, (state, x_t, a_t, b_t, c_t),
+                         (_STATE_T, _X_T, _A_T, _BC_T, _BC_T), [_X_T, _STATE_T],
+                         heads=None, partial_over=[("inner",)])
+    return move_split(y, "partial", 1, whole_rest=True).to(x_t.dtype), state
 
 
 def _ssd_chunked(x, a, B_mat, C_mat, initial_state=None, *, chunk):

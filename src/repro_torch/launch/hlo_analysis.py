@@ -204,6 +204,7 @@ def _collective_table():
     add("_c10d_functional", "all_gather_into_tensor", "all-gather", "out", 2)
     add("_c10d_functional", "reduce_scatter_tensor", "reduce-scatter", "out", 3)
     add("_c10d_functional", "all_to_all_single", "all-to-all", "out", 3)
+    add("_c10d_functional_autograd", "all_to_all_single", "all-to-all", "out", 3)
     add("_dtensor", "shard_dim_alltoall", "all-to-all", "out", 3)
     add("c10d", "allreduce_", "all-reduce", 0, 1)
     add("c10d", "_allgather_base_", "all-gather", 0, 2)

@@ -29,7 +29,7 @@ import torch
 from torch import nn
 
 from ..configs.base import ModelConfig
-from ..kernels._local import is_dtensor, per_shard, split_dim
+from ..kernels._local import is_dtensor, move_split, per_shard, split_dim
 from ..kernels.flash_attention import flash_attention
 from ..kernels.flash_attention.ops import KV_ROLES, Q_ROLES, gqa_per_shard
 from .common import (Initializer, Kept, RuntimeConfig, apply_rope, dense_apply,
@@ -199,19 +199,57 @@ def attn_decode(
 
 def _decode_attend(params, q, k, v, valid, cfg: ModelConfig, dtype):
     """One query a row against k/v (B, L, Hkv, dh), keys masked by ``valid``
-    (B, L); in fp32, then the output projection in ``dtype``."""
+    (B, L); in fp32, then the output projection in ``dtype``.  With
+    DTensors, in the cache's own layout (:func:`_decode_per_shard`)."""
     B = q.shape[0]
     Hq, dh = cfg.n_heads, cfg.head_dim
     if is_dtensor(q) or is_dtensor(k):
-        k, v = gqa_per_shard(q, k, v)
-        out = per_shard(partial(_decode_core, softcap=cfg.attn_softcap),
-                        (q, k, v, valid), (Q_ROLES, KV_ROLES, KV_ROLES,
-                                           ("batch", None)),
-                        Q_ROLES, heads=(Hq, k.shape[2]))
+        out = _decode_per_shard(q, k, v, valid, cfg.attn_softcap)
     else:
         out = _decode_core(q, k, v, valid, softcap=cfg.attn_softcap)
     out = out.reshape(B, 1, Hq * dh).to(dtype)
     return linear(out, params["wo"]["w"])
+
+
+_Q_DEC = ("batch", None, "heads", "inner")       # q, k, v and the output
+_S_DEC = ("batch", "heads", None, None)          # scores (B, Hkv, group, L)
+
+
+def _decode_per_shard(q, k, v, valid, softcap):
+    """:func:`_decode_core` on shards, in the layout the cache arrives in
+    (``cache_specs``): per batch rows and KV heads where it splits them, and
+    where it splits the head dim, each rank's slice of it gives a partial
+    sum of the scores, all-reduced before the softmax (q moves to the same
+    split: its heads' all-to-all), and a slice of the output, moved back to
+    the heads for the output projection.  The cache never moves."""
+    from torch.distributed.tensor import Replicate
+
+    dh, Hq = q.shape[-1], q.shape[2]
+    if not is_dtensor(k):
+        k, v = gqa_per_shard(q, k, v)
+        return per_shard(partial(_decode_core, softcap=softcap),
+                         (q, k, v, valid), (Q_ROLES, KV_ROLES, KV_ROLES, ("batch", None)),
+                         Q_ROLES, heads=(Hq, k.shape[2]))
+
+    def scores(q, k):
+        return _decode_scores(q.float() * (dh ** -0.5), k.float(), q.shape[0],
+                              q.shape[2] // k.shape[2], k.shape[2], q.shape[3])
+
+    s = per_shard(scores, (q, k), (_Q_DEC, _Q_DEC), _S_DEC, heads=None, anchor=1,
+                  partial_over=[("inner",)])
+    s = s.redistribute(s.device_mesh, [Replicate() if pl.is_partial() else pl
+                                       for pl in s.placements])
+
+    def attend(s, v, valid):
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
+        p = torch.softmax(torch.where(valid[:, None, None, :], s, NEG_INF), dim=-1)
+        out = torch.einsum("bngk,bknd->bngd", p, v.float())
+        return out.reshape(out.shape[0], 1, -1, out.shape[-1])
+
+    out = per_shard(attend, (s, v, valid), (_S_DEC, _Q_DEC, ("batch", None)), _Q_DEC,
+                    heads=None, anchor=1)
+    return move_split(out, 3, 2, whole_rest=True)
 
 
 def _decode_core(q, k, v, valid, *, softcap):

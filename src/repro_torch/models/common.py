@@ -25,11 +25,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..kernels._local import is_dtensor
+from ..kernels._local import is_dtensor, one_row, rows_split
 
 __all__ = ["RuntimeConfig", "Initializer", "resolve_device", "rmsnorm",
            "layernorm", "norm_init", "norm_apply", "dense_init", "dense_apply",
            "mlp_init", "mlp_apply", "apply_rope", "softcap", "on_use", "Kept", "weight",
+           "keep_layout",
            "linear", "sharded_matmul"]
 
 
@@ -64,6 +65,12 @@ class RuntimeConfig:
 
     def hidden(self, x):
         return self.act_sharding.hidden(x) if self.act_sharding else x
+
+    def residual(self, x, y):
+        """x + y on the residual stream: both laid out as :meth:`hidden`
+        lays it out first (a partial sum reduced before the add, which
+        torch versions plan differently), and the sum too."""
+        return self.hidden(self.hidden(x) + self.hidden(y))
 
     def logits_constraint(self, x):
         return self.act_sharding.logits(x) if self.act_sharding else x
@@ -141,8 +148,10 @@ def on_use(p, x=None):
     whole (its batch is not split there: a step of one row), every rank
     would run the same whole product of a gathered weight; a 2-d weight
     keeps its FSDP shard on such a dim instead, as the reference's GSPMD
-    keeps it, and comes back as a :class:`Kept` for :func:`linear`, which
-    moves the activation (:func:`weight` gives its tensor to other ops)."""
+    keeps it, and at one token a row wherever the activation is the smaller
+    (:func:`_fsdp_kept`).  It comes back as a :class:`Kept` for
+    :func:`linear`, which moves the activation (:func:`weight` gives its
+    tensor to other ops)."""
     if isinstance(p, torch.Tensor):
         layout = getattr(p, "on_use", None)
         if layout is None:
@@ -165,13 +174,29 @@ def on_use(p, x=None):
 
 
 def _fsdp_kept(p, layout, x) -> tuple:
-    """The mesh dims on which the 2-d parameter ``p`` is sharded, its use
-    layout is not (an FSDP dim) and ``x`` is whole."""
-    if p.dim() != 2 or not is_dtensor(x):
+    """The mesh dims on which the parameter ``p`` is sharded, its use layout
+    is not (an FSDP dim) and the shard is kept rather than gathered.  A 2-d
+    weight keeps it where ``x`` is whole, and at one token a row
+    (:func:`~repro_torch.kernels._local.one_row`, decode) where the
+    activations that move instead (the batch's rows by p's two dims, in
+    and out) hold fewer elements than p.  An expert stack (3-d) split
+    there on d_model (not on its experts) keeps it at one token a row under
+    the same count (one expert's dims) where x's batch is not split (the
+    one-row residual stream,
+    :meth:`~repro_torch.train.sharding.ActivationSharding.hidden`)."""
+    if p.dim() not in (2, 3) or not is_dtensor(x):
         return ()
+    d_in, d_out = p.shape[-2:]
+    small = one_row(x) and x.shape[0] * (d_in + d_out) < d_in * d_out
+
+    def keep(pl, xpl):
+        if p.dim() == 2:
+            return small or xpl.is_replicate()
+        return small and not xpl.is_shard(0) and not pl.is_shard(0)
+
     return tuple(i for i, (pl, use, xpl) in enumerate(zip(p.placements, layout,
                                                           x.placements))
-                 if pl.is_shard() and not use.is_shard() and xpl.is_replicate())
+                 if pl.is_shard() and not use.is_shard() and keep(pl, xpl))
 
 
 def weight(w) -> torch.Tensor:
@@ -182,11 +207,22 @@ def weight(w) -> torch.Tensor:
 
 def linear(x: torch.Tensor, w) -> torch.Tensor:
     """``x @ w`` in x's dtype; a :class:`Kept` weight through
-    :func:`sharded_matmul`, whose product comes back whole on its kept
-    mesh dims (a sum of the ranks' partial products, or a gather of their
-    columns)."""
+    :func:`sharded_matmul`.  Where ``x`` is split on its sequence
+    (sequence parallelism, ``kernels/_local.py::rows_split``), each rank
+    multiplies its own rows by ``w`` gathered on those mesh dims (cast to
+    x's dtype first under no grad), rather than moving the activation to
+    the weight's split and summing partial products."""
     if isinstance(w, Kept):
         return sharded_matmul(x, w.w.to(x.dtype), w.dims)
+    rows = rows_split(x) if is_dtensor(w) else ()
+    if any(w.placements[i].is_shard() for i in rows):
+        from torch.distributed.tensor import Replicate
+
+        if not torch.is_grad_enabled():
+            w = w.to(x.dtype)
+        w = w.redistribute(w.device_mesh, [Replicate() if i in rows else pl
+                                           for i, pl in enumerate(w.placements)])
+        return sharded_matmul(x, w.to(x.dtype))
     return x @ w.to(x.dtype)
 
 
@@ -196,20 +232,26 @@ def sharded_matmul(x: torch.Tensor, w: torch.Tensor, kept: Tuple[int, ...] = ()
     that none is left to DTensor's choice (whose matmul flattens the batch
     and sequence dims, and so moves an x split on its sequence): x's last
     dim laid out as w's first (a slice where x is whole and w's first dim is
-    sharded, a gather where x's is sharded and w's is not), w as it is; the
-    product a partial sum where w's first dim is sharded, split on its last
-    dim where w's second is, else laid out as x, and whole on the mesh dims
-    ``kept``.  The gradients come back in the inputs' layouts: x's a partial
-    sum where w's second dim is sharded, w's where x is split on a dim the
-    product keeps (its batch or rows)."""
+    sharded, an all-to-all where x is split on its batch there, a gather
+    where x's last dim is sharded and w's first is not), x whole where w's
+    second dim is sharded, w as it is; the product a partial sum where w's
+    first dim is sharded, split on its last dim where w's second is, else
+    laid out as x.  On the mesh dims ``kept`` (a weight that kept its FSDP
+    shard, :func:`on_use`) the product comes back in x's layout where x was
+    split on its batch (a reduce-scatter or an all-to-all), whole where it
+    is a partial sum, and split on its last dim where it is (the one-row
+    residual stream's layout).  The gradients come back in the inputs'
+    layouts: x's a partial sum where w's second dim is sharded, w's where x
+    is split on a dim the product keeps (its batch or rows)."""
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
     from ..train.sharding import pin
 
     last = x.dim() - 1
+    given = x.placements
     x = pin(x, [Shard(last) if wp.is_shard(0) else
-                (Replicate() if xp.is_shard(last) else xp)
+                (Replicate() if wp.is_shard(1) or xp.is_shard(last) else xp)
                 for xp, wp in zip(x.placements, w.placements)])
     y_pl, x_grad, w_grad = [], [], []
     for xp, wp in zip(x.placements, w.placements):
@@ -222,7 +264,9 @@ def sharded_matmul(x: torch.Tensor, w: torch.Tensor, kept: Tuple[int, ...] = ()
                   redistribute_inputs=True)(x, w)
     if not kept:
         return y
-    return pin(y, [Replicate() if i in kept else pl for i, pl in enumerate(y.placements)])
+    return pin(y, [pl if i not in kept else given[i] if given[i].is_shard(0) else
+                   Replicate() if pl.is_partial() else pl
+                   for i, pl in enumerate(y.placements)])
 
 
 # ---------------------------------------------------------------------------
@@ -237,20 +281,37 @@ def norm_init(ini: Initializer, d: int, kind: str, dtype) -> nn.ParameterDict:
                              "bias": ini.zeros((d,), dtype)})
 
 
+def keep_layout(x: torch.Tensor, t: torch.Tensor, stat: bool = False) -> torch.Tensor:
+    """``t`` pinned to the DTensor ``x``'s layout, its gradient too (a
+    statistic over x's last dim without that dim's split, and whole where x
+    is a partial sum): a norm's layouts, forward and backward, are not left
+    to DTensor's choice, which differs between torch versions.  Plain
+    tensors pass as they are."""
+    if not is_dtensor(x):
+        return t
+    from torch.distributed.tensor import Replicate
+
+    from ..train.sharding import pin
+
+    last = x.dim() - 1
+    return pin(t, [Replicate() if (stat and pl.is_shard(last)) or pl.is_partial() else pl
+                   for pl in x.placements])
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    var = keep_layout(x, torch.mean(xf * xf, dim=-1, keepdim=True), stat=True)
     y = xf * torch.rsqrt(var + 1e-6)
-    return (y * (1.0 + scale.float())).to(x.dtype)
+    return keep_layout(x, (y * (1.0 + scale.float())).to(x.dtype))
 
 
 def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor
               ) -> torch.Tensor:
     xf = x.float()
-    mean = torch.mean(xf, dim=-1, keepdim=True)
-    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    mean = keep_layout(x, torch.mean(xf, dim=-1, keepdim=True), stat=True)
+    var = keep_layout(x, torch.var(xf, dim=-1, keepdim=True, correction=0), stat=True)
     y = (xf - mean) * torch.rsqrt(var + 1e-6)
-    return (y * scale.float() + bias.float()).to(x.dtype)
+    return keep_layout(x, (y * scale.float() + bias.float()).to(x.dtype))
 
 
 def norm_apply(params, x: torch.Tensor, kind: str) -> torch.Tensor:

@@ -54,9 +54,9 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..configs.base import ModelConfig
-from ..kernels._local import is_dtensor
+from ..kernels._local import block_index, is_dtensor, last_row
 from .attention import attn_apply, attn_decode, attn_init, init_kv_cache
-from .common import (Initializer, RuntimeConfig, linear, mlp_apply, mlp_init,
+from .common import (Initializer, Kept, RuntimeConfig, linear, mlp_apply, mlp_init,
                      norm_apply, norm_init, on_use, resolve_device, softcap)
 from .moe import moe_apply, moe_apply_shardmap, moe_decode, moe_init
 from .recurrent_block import init_rec_cache, rec_apply, rec_decode, rec_init
@@ -204,7 +204,7 @@ class DecoderLM(nn.Module):
         cfg, rt = self.cfg, self.rt
         if cfg.post_norms:
             mix = norm_apply(p["post_norm1"], rt.hidden(mix), cfg.norm)
-        x = rt.hidden(x + mix)
+        x = rt.residual(x, mix)
         h = rt.hidden(norm_apply(p["norm2"], x, cfg.norm))
         if cfg.n_experts:
             if decode:
@@ -219,14 +219,14 @@ class DecoderLM(nn.Module):
             y = mlp_apply(p["mlp"], h, cfg.act)
         if cfg.post_norms:
             y = norm_apply(p["post_norm2"], rt.hidden(y), cfg.norm)
-        return x + y
+        return rt.residual(x, y)
 
     def _apply_block(self, kind: str, p, x, *, positions, segments):
         cfg, rt = self.cfg, self.rt
         p = on_use(p, x)
         h = rt.hidden(norm_apply(p["norm1"], x, cfg.norm))
         if kind == "ssm":
-            return rt.hidden(x + ssm_apply(p["ssm"], h, cfg, rt))
+            return rt.residual(x, ssm_apply(p["ssm"], h, cfg, rt))
         if kind == "rec":
             mix = rec_apply(p["rec"], h, cfg, rt)
         else:
@@ -304,7 +304,7 @@ class DecoderLM(nn.Module):
             x, state = self._prefill_block(kind, p, x, layer_cache, positions,
                                            segments)
             filled.append(state)
-        return self._logits(x[:, -1:, :]), filled, x.shape[1]
+        return self._logits(last_row(x)), filled, x.shape[1]
 
     def _prefill_block(self, kind: str, p, x, cache, positions, segments=None):
         cfg, rt = self.cfg, self.rt
@@ -313,7 +313,7 @@ class DecoderLM(nn.Module):
         if kind == "ssm":
             y, state = ssm_apply(p["ssm"], h, cfg, rt, return_state=True)
             state["conv"] = state["conv"].to(cache["conv"].dtype)
-            return rt.hidden(x + y), state
+            return rt.residual(x, y), state
         if kind == "rec":
             mix, state = rec_apply(p["rec"], h, cfg, rt, return_state=True)
             state["conv"] = state["conv"].to(cache["conv"].dtype)
@@ -348,7 +348,7 @@ class DecoderLM(nn.Module):
         h = rt.hidden(norm_apply(p["norm1"], x_t, cfg.norm))
         if kind == "ssm":
             y, state = ssm_decode(p["ssm"], h, cache, cfg, rt)
-            return rt.hidden(x_t + y), state
+            return rt.residual(x_t, y), state
         if kind == "rec":
             mix, state = rec_decode(p["rec"], h, cache, cfg, rt)
         else:
@@ -360,22 +360,25 @@ class DecoderLM(nn.Module):
 
 def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """The rows of ``embed`` for ``tokens``.  A sharded table is gathered on
-    use; where its vocab stays sharded, each rank looks up the tokens that
-    fall in its rows (zeros for the rest) and the result is a partial sum
-    over those mesh dims."""
-    embed = on_use(embed)
+    use, but at one token a row (decode) it keeps its FSDP shard of d_model
+    (:func:`on_use`), and each rank's rows come out split there; where its
+    vocab stays sharded, each rank looks up the tokens that fall in its rows
+    (zeros for the rest) and the result is a partial sum over those mesh
+    dims.  The tokens are whole on the mesh dims the table is split on."""
+    embed = on_use(embed, tokens)
+    kept = ()
+    if isinstance(embed, Kept):
+        embed, kept = embed
     if not is_dtensor(embed):
         return embed[tokens]
-    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
     mesh = embed.device_mesh
     vocab = [i for i, pl in enumerate(embed.placements) if pl.is_shard(0)]
-    if not vocab:
+    if not vocab and not kept:
         return torch.nn.functional.embedding(tokens, embed)
-    coord, index, n = mesh.get_coordinate(), 0, 1
-    for i in vocab:                    # this rank's block of rows, in mesh order
-        index, n = index * mesh.size(i) + coord[i], n * mesh.size(i)
+    index, n = block_index(mesh, vocab)        # this rank's block of rows
     rows = embed.shape[0] // n
     lo = index * rows
 
@@ -384,9 +387,11 @@ def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
         out = table[torch.where(hit, tok - lo, 0)]
         return torch.where(hit[..., None], out, torch.zeros((), dtype=out.dtype))
 
-    tok_pl = [Replicate() if i in vocab else pl for i, pl in enumerate(tokens.placements)]
-    out_pl = [Partial() if i in vocab else pl for i, pl in enumerate(tok_pl)]
-    grad_pl = [pl if i in vocab else (Partial() if tok_pl[i].is_shard() else Replicate())
+    split = vocab + list(kept)
+    tok_pl = [Replicate() if i in split else pl for i, pl in enumerate(tokens.placements)]
+    out_pl = [Partial() if i in vocab else Shard(2) if i in kept else pl
+              for i, pl in enumerate(tok_pl)]
+    grad_pl = [pl if i in split else (Partial() if tok_pl[i].is_shard() else Replicate())
                for i, pl in enumerate(embed.placements)]
     return local_map(lookup, out_placements=out_pl, in_placements=(
         list(embed.placements), tok_pl), in_grad_placements=(grad_pl, tok_pl),
@@ -427,16 +432,36 @@ def xent_loss(logits: torch.Tensor, labels: torch.Tensor):
 
 def _vocab_parallel_terms(logits, labels):
     """(logsumexp, label logit) of DTensor logits whose vocab dim may be
-    sharded, without gathering it: the max, the sum of exponentials and the
-    one-hot reduction each reduce over the local vocab first."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
+    sharded, without gathering it: each rank reduces its own vocab block
+    (the max, the sum of exponentials and the one-hot label term) and the
+    (B, S) partial results are all-reduced.  Every layout is pinned (per
+    shard, by ``local_map``), the gradient's too: the logits' gradient stays
+    in their layout, each rank's block from its own terms."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
 
     mesh, last = logits.device_mesh, logits.dim() - 1
-    iota = DTensor.from_local(torch.arange(logits.shape[-1], device=labels.device), mesh,
-                              [Replicate()] * mesh.ndim, run_check=False)
-    iota = iota.redistribute(mesh, [Shard(0) if pl.is_shard(last) else Replicate()
-                                    for pl in logits.placements])
-    m = logits.amax(dim=-1, keepdim=True).detach()
-    lse = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
-    label_logit = torch.where(labels[..., None] == iota, logits, 0.0).sum(dim=-1)
-    return lse, label_logit
+    vocab = [i for i, pl in enumerate(logits.placements) if pl.is_shard(last)]
+    index, n = block_index(mesh, vocab)        # this rank's vocab block
+    lo = index * (logits.shape[-1] // n)
+    l_pl = list(logits.placements)
+    rows = [Replicate() if i in vocab else pl for i, pl in enumerate(l_pl)]
+    m = local_map(lambda l: l.amax(dim=-1),
+                  out_placements=[Partial("max") if i in vocab else pl
+                                  for i, pl in enumerate(rows)],
+                  in_placements=(l_pl,), device_mesh=mesh,
+                  redistribute_inputs=True)(logits.detach())
+    m = m.redistribute(mesh, rows)
+
+    def terms(l, m, lab):
+        iota = lo + torch.arange(l.shape[-1], device=l.device)
+        return (torch.exp(l - m[..., None]).sum(dim=-1),
+                torch.where(lab[..., None] == iota, l, 0.0).sum(dim=-1))
+
+    part = [Partial() if i in vocab else pl for i, pl in enumerate(rows)]
+    s, label_logit = local_map(terms, out_placements=(part, part),
+                               in_placements=(l_pl, rows, rows),
+                               in_grad_placements=(l_pl, rows, rows), device_mesh=mesh,
+                               redistribute_inputs=True)(logits, m, labels)
+    lse = torch.log(s.redistribute(mesh, rows)) + m
+    return lse, label_logit.redistribute(mesh, rows)

@@ -30,7 +30,7 @@ import torch
 from torch import nn
 
 from ..configs.base import ModelConfig
-from ..kernels._local import is_dtensor, per_shard, split_dim
+from ..kernels._local import is_dtensor, last_row, per_shard, split_dim
 from ..kernels.flash_attention.ops import KV_ROLES, Q_ROLES, gqa_per_shard
 from .attention import attn_apply, attn_decode, attn_init, init_kv_cache, out_proj
 from .common import (Initializer, RuntimeConfig, dense_apply, linear, mlp_apply,
@@ -98,9 +98,9 @@ class EncDecLM(nn.Module):
     def _enc_block(self, p, x: torch.Tensor) -> torch.Tensor:
         cfg, rt = self.cfg, self.rt
         p = on_use(p, x)
-        x = rt.hidden(x + attn_apply(p["attn"], self._norm(p["norm1"], x), cfg, rt,
+        x = rt.residual(x, attn_apply(p["attn"], self._norm(p["norm1"], x), cfg, rt,
                                      causal=False))
-        return x + mlp_apply(p["mlp"], self._norm(p["norm2"], x), cfg.act)
+        return rt.residual(x, mlp_apply(p["mlp"], self._norm(p["norm2"], x), cfg.act))
 
     def encode(self, frames: torch.Tensor) -> torch.Tensor:
         """frames: (B, S_enc, D) precomputed frontend embeddings."""
@@ -113,17 +113,17 @@ class EncDecLM(nn.Module):
     def _dec_block(self, p, x: torch.Tensor, enc_out: torch.Tensor) -> torch.Tensor:
         cfg, rt = self.cfg, self.rt
         p = on_use(p, x)
-        x = rt.hidden(x + attn_apply(p["self_attn"], self._norm(p["norm1"], x), cfg,
+        x = rt.residual(x, attn_apply(p["self_attn"], self._norm(p["norm1"], x), cfg,
                                      rt, causal=True))
-        x = rt.hidden(x + attn_apply(p["cross_attn"], self._norm(p["norm2"], x), cfg,
+        x = rt.residual(x, attn_apply(p["cross_attn"], self._norm(p["norm2"], x), cfg,
                                      rt, kv_x=enc_out))
-        return x + mlp_apply(p["mlp"], self._norm(p["norm3"], x), cfg.act)
+        return rt.residual(x, mlp_apply(p["mlp"], self._norm(p["norm3"], x), cfg.act))
 
     def _dec_trunk(self, x: torch.Tensor, enc_out: torch.Tensor) -> torch.Tensor:
         return self._layers(self._dec_block, self.decoder, x, enc_out)
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        return embed_lookup(self.embed, tokens).to(self.rt.compute_dtype)
+        return self.rt.hidden(embed_lookup(self.embed, tokens).to(self.rt.compute_dtype))
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
@@ -193,13 +193,13 @@ class EncDecLM(nn.Module):
             mix, (k, v) = attn_apply(p["self_attn"], self._norm(p["norm1"], x),
                                      cfg, rt, positions=positions, causal=True,
                                      return_kv=True)
-            x = rt.hidden(x + mix)
+            x = rt.residual(x, mix)
             sc["k"][:, :S] = k.to(sc["k"].dtype)
             sc["v"][:, :S] = v.to(sc["v"].dtype)
-            x = rt.hidden(x + _cross_apply(p["cross_attn"], self._norm(p["norm2"], x),
+            x = rt.residual(x, _cross_apply(p["cross_attn"], self._norm(p["norm2"], x),
                                            cr, cfg))
-            x = rt.hidden(x + mlp_apply(p["mlp"], self._norm(p["norm3"], x), cfg.act))
-        return self._logits(x[:, -1:, :]), {"self": self_cache, "cross": cross}, S
+            x = rt.residual(x, mlp_apply(p["mlp"], self._norm(p["norm3"], x), cfg.act))
+        return self._logits(last_row(x)), {"self": self_cache, "cross": cross}, S
 
     @torch.inference_mode()
     def decode_step(self, cache: Dict, token: torch.Tensor, pos: int):
@@ -213,10 +213,10 @@ class EncDecLM(nn.Module):
             mix, sc = attn_decode(p["self_attn"], self._norm(p["norm1"], x),
                                   sc, pos, cfg, rt)
             new_self.append(sc)
-            x = rt.hidden(x + mix)
-            x = rt.hidden(x + _cross_apply(p["cross_attn"], self._norm(p["norm2"], x),
+            x = rt.residual(x, mix)
+            x = rt.residual(x, _cross_apply(p["cross_attn"], self._norm(p["norm2"], x),
                                            cr, cfg))
-            x = rt.hidden(x + mlp_apply(p["mlp"], self._norm(p["norm3"], x), cfg.act))
+            x = rt.residual(x, mlp_apply(p["mlp"], self._norm(p["norm3"], x), cfg.act))
         return self._logits(x), {"self": new_self, "cross": cache["cross"]}
 
 

@@ -40,7 +40,7 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from ..kernels._local import is_dtensor, per_shard, shard_layout
-from .common import Initializer, RuntimeConfig, linear, weight
+from .common import Initializer, Kept, RuntimeConfig, linear, weight
 
 __all__ = ["moe_init", "moe_apply", "moe_apply_shardmap", "moe_decode",
            "moe_groups"]
@@ -59,7 +59,10 @@ def moe_init(ini: Initializer, cfg: ModelConfig, dtype) -> nn.ParameterDict:
 def _route(p, x: torch.Tensor, cfg: ModelConfig):
     """Router logits and top-k in fp32.  x: (..., D) -> gates and expert ids
     (..., K), the first the top choice, and the probabilities (..., E)."""
-    logits = linear(x.float(), p["router"])
+    return _top_k(linear(x.float(), p["router"]), cfg)
+
+
+def _top_k(logits: torch.Tensor, cfg: ModelConfig):
     probs = torch.softmax(logits, dim=-1)
     gate, idx = torch.topk(probs, cfg.experts_per_token, dim=-1, sorted=True)
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
@@ -366,16 +369,69 @@ def moe_apply_shardmap(p, x: torch.Tensor, cfg: ModelConfig, rt: RuntimeConfig,
 def moe_decode(p, x: torch.Tensor, cfg: ModelConfig, rt: RuntimeConfig
                ) -> torch.Tensor:
     """x: (B, 1, D).  Dense all-expert compute, top-k combine."""
+    if isinstance(p["wi"], Kept):
+        return _moe_decode_kept(p, x, cfg)
     if is_dtensor(x):
         return _moe_per_shard(lambda q, y: moe_decode(q, y, cfg, rt), p, x, cfg, False)
-    B, S, D = x.shape
-    E, K = cfg.n_experts, cfg.experts_per_token
     gate, idx, _ = _route(p, x, cfg)                           # (B, 1, K)
     cd = x.dtype
     h = torch.einsum("btd,edf->btef", x, p["wi"].to(cd))
     g = torch.einsum("btd,edf->btef", x, p["wg"].to(cd))
-    ye = torch.einsum("btef,efd->bted", h * F.silu(g), p["wo"].to(cd))  # (B,1,E,D)
-    w = torch.zeros((B, S, E), dtype=torch.float32, device=x.device)
-    for k_i in range(K):
+    return _combine(h * F.silu(g), p["wo"].to(cd), gate, idx, cfg)
+
+
+def _combine(a, wo, gate, idx, cfg: ModelConfig):
+    """The top-k gates' sum of the experts' outputs ``a`` @ ``wo``."""
+    B, S, E = a.shape[0], a.shape[1], cfg.n_experts
+    ye = torch.einsum("btef,efd->bted", a, wo)                 # (B,1,E,D)
+    w = torch.zeros((B, S, E), dtype=torch.float32, device=a.device)
+    for k_i in range(cfg.experts_per_token):
         w = w + F.one_hot(idx[..., k_i], E).float() * gate[..., k_i][..., None]
-    return torch.einsum("bte,bted->btd", w.to(cd), ye)
+    return torch.einsum("bte,bted->btd", w.to(a.dtype), ye)
+
+
+def _moe_decode_kept(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """:func:`moe_decode` whose expert stacks kept their FSDP shard of
+    d_model (``on_use`` at one row): each rank contracts its slice of x's
+    d_model (x split there, the one-row residual stream) into partial sums
+    of h and g, all-reduced at (B, 1, E, d_ff's tensor-parallel shard), and
+    gives its d_model slice of the gated sum of the experts' outputs: the
+    output is split on d_model there and a partial sum over d_ff's split.
+    The router's logits come whole (``linear`` of a kept weight)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from ..train.sharding import pin
+
+    kept = p["wi"].dims
+    wi, wg, wo = (weight(p[k]) for k in ("wi", "wg", "wo"))
+    mesh, cd = x.device_mesh, x.dtype
+    logits = linear(x.float(), p["router"])
+    logits = logits.redistribute(mesh, [Replicate()] * mesh.ndim)
+    x = pin(x, [Shard(2) if i in kept else Replicate() for i in range(mesh.ndim)])
+
+    def split(w, d_dim, d_out, f_out):
+        """The product's placement on each mesh dim: ``d_out`` where w
+        splits d_model (its dim ``d_dim``), ``f_out`` where it splits d_ff
+        (a kept stack is split on no expert), whole elsewhere."""
+        return [d_out if pl.is_shard(d_dim) else f_out if pl.is_shard() else Replicate()
+                for pl in w.placements]
+
+    hg_pl = split(wi, 1, Partial(), Shard(3))
+    h, g = local_map(
+        lambda x, wi, wg: (torch.einsum("btd,edf->btef", x, wi.to(cd)),
+                           torch.einsum("btd,edf->btef", x, wg.to(cd))),
+        out_placements=(hg_pl, hg_pl), device_mesh=mesh,
+        in_placements=(list(x.placements), list(wi.placements), list(wg.placements)),
+        redistribute_inputs=True)(x, wi, wg)
+    whole = [Replicate() if pl.is_partial() else pl for pl in hg_pl]
+    h, g = h.redistribute(mesh, whole), g.redistribute(mesh, whole)
+
+    def combine(h, g, wo, logits):
+        gate, idx, _ = _top_k(logits, cfg)
+        return _combine(h * F.silu(g), wo.to(cd), gate, idx, cfg)
+
+    return local_map(combine, out_placements=split(wo, 2, Shard(2), Partial()),
+                     in_placements=(whole, whole, list(wo.placements),
+                                    [Replicate()] * mesh.ndim),
+                     device_mesh=mesh, redistribute_inputs=True)(h, g, wo, logits)

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ModelConfig
+from ..kernels._local import move_split, rows_split
 from ..kernels.rglru import rglru, rglru_step
 from .common import Initializer, RuntimeConfig, linear
 
@@ -56,17 +57,23 @@ def _conv(conv_w, conv_b, x, conv_state=None):
 
 def rec_apply(params, x: torch.Tensor, cfg: ModelConfig, rt: RuntimeConfig,
               initial: Optional[Dict] = None, return_state: bool = False):
-    """Full-sequence recurrent block.  x: (B, S, D)."""
+    """Full-sequence recurrent block.  x: (B, S, D).  Where x is split on
+    its sequence (sequence parallelism), the conv and the scan, which run
+    along the sequence, take the width's split instead (an all-to-all each
+    way), and the matmuls run on a rank's rows."""
+    rows = rows_split(x)
     bx = linear(x, params["in_x"])
     by = F.gelu(linear(x, params["in_y"]), approximate="tanh")
     conv_in = initial["conv"] if initial is not None else None
     bx, conv_state = _conv(params["conv_w"].to(x.dtype),
-                           params["conv_b"].to(x.dtype), bx, conv_in)
-    r = linear(bx, params["gate_r"])
-    i = linear(bx, params["gate_i"])
+                           params["conv_b"].to(x.dtype), move_split(bx, 1, 2, rows),
+                           conv_in)
+    gx = move_split(bx, 2, 1, rows)
+    r = move_split(linear(gx, params["gate_r"]), 1, 2, rows)
+    i = move_split(linear(gx, params["gate_i"]), 1, 2, rows)
     h0 = initial["h"] if initial is not None else None
     y, h = rglru(bx, r, i, params["lam"], h0, impl=rt.rglru_impl)
-    out = linear(y * by, params["out"])
+    out = linear(move_split(y, 2, 1, rows) * by, params["out"])
     if return_state:
         return out, {"h": h, "conv": conv_state}
     return out

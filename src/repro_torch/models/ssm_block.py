@@ -18,9 +18,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ModelConfig
-from ..kernels._local import split_dim
+from ..kernels._local import move_split, regroup, rows_split, split_dim
 from ..kernels.ssd import ssd, ssd_step
-from .common import Initializer, RuntimeConfig, linear, rmsnorm
+from .common import Initializer, RuntimeConfig, keep_layout, linear, rmsnorm
 
 __all__ = ["ssm_init", "ssm_apply", "ssm_decode", "init_ssm_cache"]
 
@@ -42,7 +42,7 @@ def ssm_init(ini: Initializer, cfg: ModelConfig, dtype) -> nn.ParameterDict:
 
 def _split_proj(cfg: ModelConfig, proj: torch.Tensor):
     Din, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
-    z, xbc, dt = torch.split(proj, [Din, Din + 2 * N, H], dim=-1)
+    z, xbc, dt = regroup(proj, [Din, Din + 2 * N, H])
     return z, xbc, dt                        # (.., Din) (.., Din+2N) (.., H)
 
 
@@ -74,16 +74,18 @@ def ssm_apply(params, x: torch.Tensor, cfg: ModelConfig, rt: RuntimeConfig,
     """Full-sequence Mamba-2 mixer.  x: (B, S, D)."""
     B, S, D = x.shape
     Din, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
-    proj = linear(x, params["in_proj"])
+    # (a sequence-parallel x: the conv and the scan run along the sequence,
+    # so the projection takes the channels' split: an all-to-all)
+    proj = move_split(linear(x, params["in_proj"]), 1, 2, rows_split(x))
     # z, xbc and dt (and then x, B and C) do not fall on the shards of a
-    # tensor-parallel last dim: gather it before the split, whose gradient
-    # then comes back sharded as the matmul's output was
-    z, xbc, dt_raw = _split_proj(cfg, split_dim(proj, -1, 1))
+    # tensor-parallel last dim: each piece is regrouped onto shards of its
+    # own (one all-to-all), or the dim gathered where they do not divide
+    z, xbc, dt_raw = _split_proj(cfg, proj)
     conv_in_state = initial["conv"] if initial is not None else None
     xbc, conv_state = _conv_scan(params["conv_w"].to(x.dtype),
                                  params["conv_b"].to(x.dtype),
                                  xbc, conv_in_state)
-    xs, Bm, Cm = torch.split(split_dim(xbc, -1, 1), [Din, N, N], dim=-1)
+    xs, Bm, Cm = regroup(xbc, [Din, N, N])
     xs = split_dim(xs, -1, H)
     dt, a = _gates(params, dt_raw)                        # (B,S,H)
 
@@ -95,11 +97,18 @@ def ssm_apply(params, x: torch.Tensor, cfg: ModelConfig, rt: RuntimeConfig,
     # the gradient of the merged heads must arrive sharded only where the
     # heads are (as attention's output projection)
     y = split_dim(y.reshape(B, S, Din), -1, H).to(x.dtype)
-    y = rmsnorm(y * F.silu(z), params["norm_scale"])
+    y = _gated_norm(y, z, params["norm_scale"])
     out = linear(y, params["out_proj"])
     if return_state:
         return out, {"ssd": final, "conv": conv_state}
     return out
+
+
+def _gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """``rmsnorm(y * silu(z), scale)``, the gated norm over d_inner, with
+    the gated product pinned to y's layout, its gradient too (as the norm's
+    own steps, ``common.keep_layout``)."""
+    return rmsnorm(keep_layout(y, y * F.silu(keep_layout(y, z))), scale)
 
 
 def init_ssm_cache(cfg: ModelConfig, batch: int, dtype,
@@ -122,7 +131,7 @@ def ssm_decode(params, x_t: torch.Tensor, cache: Dict, cfg: ModelConfig,
     xbc, conv_state = _conv_scan(params["conv_w"].to(x_t.dtype),
                                  params["conv_b"].to(x_t.dtype),
                                  xbc, cache["conv"])
-    xs, Bm, Cm = torch.split(xbc, [Din, N, N], dim=-1)
+    xs, Bm, Cm = regroup(xbc, [Din, N, N])
     xs = split_dim(xs, -1, H)
     dt, a = _gates(params, dt_raw)                        # (B,1,H)
     xh = (xs.reshape(B, 1, H, P) * dt[..., None].to(xs.dtype))[:, 0]

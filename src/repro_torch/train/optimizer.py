@@ -100,8 +100,27 @@ def lr_at(cfg: OptimizerConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum over leaves of the sum of squares, in fp32."""
-    return torch.sqrt(sum(torch.sum(x.float() ** 2) for x in tree.values()))
+    """sqrt of the sum over leaves of the sum of squares, in fp32.  DTensor
+    leaves sum their local squares per layout (one partial sum for the
+    leaves laid out alike, all-reduced once over the mesh dims that split
+    them), so that no reduction is left to DTensor's choice."""
+    from ..kernels._local import is_dtensor
+
+    plain = [x for x in tree.values() if not is_dtensor(x)]
+    total = sum(torch.sum(x.float() ** 2) for x in plain)
+    groups: Dict = {}
+    for x in tree.values():
+        if is_dtensor(x):
+            key = (x.device_mesh, tuple(pl.is_shard() for pl in x.placements))
+            local = torch.sum(x.to_local().float() ** 2)
+            groups[key] = groups[key] + local if key in groups else local
+    if groups:
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+    for (mesh, split), local in groups.items():
+        part = DTensor.from_local(local, mesh, [Partial() if s else Replicate()
+                                                for s in split], run_check=False)
+        total = total + part.redistribute(mesh, [Replicate()] * mesh.ndim).to_local()
+    return torch.sqrt(total)
 
 
 @torch.no_grad()

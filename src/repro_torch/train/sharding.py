@@ -45,6 +45,7 @@ from typing import Any, Dict, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from ..kernels._local import one_row
 from ..weights import jax_layout
 
 __all__ = ["ShardingRules", "param_specs", "batch_specs", "cache_specs",
@@ -299,19 +300,26 @@ def batch_specs(batch: Mapping[str, Any], rules: ShardingRules) -> Dict[str, Spe
 def cache_specs(cache, rules: ShardingRules, batch: int):
     """Decode caches (the port's per-layer lists of dicts, or the
     encoder-decoder's ``{"self": [...], "cross": [...]}``): batch over
-    batch_axes; the last dim that tp divides (heads, width) over tp."""
+    batch_axes; the last dim that tp divides (heads, width) over tp, but a
+    KV cache's heads (``"k"``/``"v"``, (B, L, H, dh)) where tp divides them
+    (the reference splits its head dim): decode attention then reads the
+    cache where it lies, and a head dim split where the heads do not divide
+    leaves only partial scores to sum (``models/attention.py``)."""
     b_axes = rules.batch_spec_axes(batch)
 
-    def assign(leaf):
+    def assign(leaf, key=None):
         if isinstance(leaf, Mapping):
-            return {k: assign(v) for k, v in leaf.items()}
+            return {k: assign(v, k) for k, v in leaf.items()}
         if isinstance(leaf, (list, tuple)):
             return [assign(v) for v in leaf]
         body = tuple(leaf.shape)
         axes = [None] * len(body)
         if body:
             axes[0] = b_axes if body[0] == batch else None
-        for i in range(len(body) - 1, 0, -1):
+        order = list(range(len(body) - 1, 0, -1))
+        if key in ("k", "v") and len(body) == 4:
+            order.insert(0, 2)
+        for i in order:
             a = rules.axis_if_divides(rules.tp_axis, body[i])
             if a:
                 axes[i] = a
@@ -506,13 +514,35 @@ class ActivationSharding:
 
     def hidden(self, x):
         """(B, S, D) residual-stream activations; with ``seq_axis`` set the
-        seq dim is sharded too."""
+        seq dim is sharded too.
+
+        Two layouts here are the port's own, not the reference's rule
+        (``src/repro/train/sharding.py``, which constrains the stream to
+        (batch, None, tp) in both cases); the dry-run's grid compares these
+        cells' traffic with the reference's other layout.  In
+        ``attn_shard_mode="seq"`` with no ``seq_axis`` the stream stays split
+        on its sequence over tp between the sequence-parallel attention
+        layers (Megatron's sequence parallelism), each layer's matmuls run
+        on a rank's rows by weights gathered on tp
+        (``models/common.py::linear``); the reference gathers the sequence.
+        At one token a row (decode), D is split over the FSDP axes that the
+        batch leaves whole, as the weights that keep their FSDP shard there
+        take and give it (``models/common.py::on_use``), so the stream is
+        never gathered; the reference leaves D whole there."""
         r = self.rules
         tp = (r.axis_if_divides(r.tp_axis, x.shape[-1])
               if r.shard_activations_embed else None)
-        if (r.seq_axis is not None and x.dim() == 3 and x.shape[1] > 1
-                and x.shape[1] % r.size(r.seq_axis) == 0):
-            return constrain(x, r, (r.batch_spec_axes(x.shape[0]), r.seq_axis, tp))
+        seq = r.seq_axis if r.seq_axis is not None else (
+            r.tp_axis if r.attn_shard_mode == "seq" and tp is None else None)
+        if (seq is not None and x.dim() == 3 and x.shape[1] > 1
+                and x.shape[1] % r.size(seq) == 0):
+            return constrain(x, r, (r.batch_spec_axes(x.shape[0]), seq, tp))
+        if tp is None and x.dim() == 3 and one_row(x) and r.fsdp_axis:
+            b_axes = r.batch_spec_axes(x.shape[0]) or ()
+            free = tuple(a for a in (r.fsdp_axis if isinstance(r.fsdp_axis, tuple)
+                                     else (r.fsdp_axis,)) if a not in b_axes)
+            tp = r.axis_if_divides(free[0] if len(free) == 1 else (free or None),
+                                   x.shape[-1])
         return constrain(x, r, self._spec(x, tp))
 
     def logits(self, x):

@@ -519,8 +519,10 @@ def test_shard_layout_roles():
 
 def test_on_use_keeps_fsdp_where_the_batch_does_not_split():
     """On a (2, 2) mesh: a block's 2-d weights gathered on "data" for an
-    input whose batch splits there, kept sharded for one row; ``linear``
-    then returns the product whole on "data" (meta shards, fake group)."""
+    input whose batch splits there over several tokens a row, kept sharded
+    for one row and for one token a row (decode, where the activation is
+    the smaller); ``linear`` then returns the product in x's layout on
+    "data" (meta shards, fake group)."""
     from torch.distributed.device_mesh import init_device_mesh
     from torch.distributed.tensor import Replicate, Shard
 
@@ -540,14 +542,15 @@ def test_on_use_keeps_fsdp_where_the_batch_does_not_split():
         shard_model(model, rules)
         block = model.blocks[0]
         D = model.cfg.d_model
-        for batch, spec, want in ((4, ("data", None, None), Replicate()),
-                                  (1, (None, None, None), Shard(0))):
-            x = shard_tree(torch.empty((batch, 1, D), device="meta"), spec, mesh)
+        for batch, tokens, spec, want in ((4, 8, ("data", None, None), Replicate()),
+                                          (4, 1, ("data", None, None), Shard(0)),
+                                          (1, 1, (None, None, None), Shard(0))):
+            x = shard_tree(torch.empty((batch, tokens, D), device="meta"), spec, mesh)
             p = on_use(block, x)
             w = p["ssm"]["in_proj"]
             assert weight(w).placements[0] == want, (batch, weight(w).placements)
-            assert isinstance(w, Kept) == (batch == 1)
-            assert batch > 1 or w.dims == (0,)
+            assert isinstance(w, Kept) == (tokens == 1)
+            assert tokens > 1 or w.dims == (0,)
             y = linear(x, w)
             assert y.placements[0] == x.placements[0]
             assert y.placements[1] == Shard(2)
