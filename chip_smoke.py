@@ -140,7 +140,14 @@ Phases (any failure exits non-zero before the last line is printed):
    ``wire_bytes`` at most the reference's (``GRID_REFERENCE_WIRE``) and
    equal to the CPU trace's with torch 2.13 (``GRID_SANDBOX_WIRE``): no
    layout of the traced steps is left to DTensor's choice, which differs
-   between torch versions.
+   between torch versions.  (d) the 40-cell grid on the fake multi-pod
+   (2, 16, 16) ("pod", "data", "model") mesh (512 ranks) under ``auto``, in
+   a subprocess of its own (``--dryrun-multi-child``) with its own timeout:
+   the statuses of tests/test_torch_dryrun_multipod_grid_auto.py, every
+   term positive, every ``ok`` cell's FLOPs and wire bytes, in all and a
+   superblock, at most the reference's (``GRID_MULTI_REFERENCE``) and its
+   ``wire_bytes`` equal to the CPU trace's (``GRID_MULTI_SANDBOX_WIRE``);
+   prints (d)'s time beside the card's name and power limit.
 
 With ``--profile``, phases 3, 4, 4b and 4c also trace one prefill of their
 first measured wave and 8 decode steps under ``torch.profiler`` and print
@@ -1889,9 +1896,9 @@ GRID_REFERENCE_WIRE = {
 # (python -m repro_torch.launch.dryrun --device cpu --all --mesh single
 # --roofline --layout auto): every layout of the traced steps is pinned.
 GRID_SANDBOX_WIRE = {
-    ("arctic-480b", "decode_32k"): 58957486560.0,
+    ("arctic-480b", "decode_32k"): 4174971360.0,
     ("arctic-480b", "prefill_32k"): 141887033280.0,
-    ("arctic-480b", "train_4k"): 297566492745.0,
+    ("arctic-480b", "train_4k"): 242300137545.0,
     ("gemma2-9b", "decode_32k"): 809971680.0,
     ("gemma2-9b", "prefill_32k"): 49922966400.0,
     ("gemma2-9b", "train_4k"): 114124792380.0,
@@ -1900,7 +1907,7 @@ GRID_SANDBOX_WIRE = {
     ("gemma3-12b", "train_4k"): 144650707260.0,
     ("internvl2-2b", "decode_32k"): 776532960.0,
     ("internvl2-2b", "prefill_32k"): 9521358720.0,
-    ("internvl2-2b", "train_4k"): 87119846437.5,
+    ("internvl2-2b", "train_4k"): 65225579557.5,
     ("mamba2-1.3b", "decode_32k"): 25377120.0,
     ("mamba2-1.3b", "long_500k"): 1321627.5,
     ("mamba2-1.3b", "prefill_32k"): 23628684480.0,
@@ -1922,6 +1929,88 @@ GRID_SANDBOX_WIRE = {
     ("stablelm-1.6b", "prefill_32k"): 14980945920.0,
     ("stablelm-1.6b", "train_4k"): 62467307557.5,
 }
+
+# (d) holds every ok cell of the multi-pod (2, 16, 16) grid under "auto" at
+# or under the reference's record of the same cell, from
+#   python -m repro.launch.dryrun --all --mesh multi --roofline --layout auto
+# (jax 0.9.0 on the CPU): (per-superblock FLOPs, FLOPs, wire bytes,
+# per-superblock wire bytes).  arctic-480b x train_4k's wire bytes add the
+# tuple-shaped collectives that the reference's parser skips (its expert
+# all-to-alls and combined gradient all-reduces; derived in
+# tests/test_torch_dryrun_multipod_grid_auto.py::reference_with_tuples).
+GRID_MULTI_REFERENCE = {
+    ("arctic-480b", "decode_32k"): (13855176704.0, 478538926080.0, 56239957504.0, 1634416384.0),
+    ("arctic-480b", "prefill_32k"): (4040932982784.0, 141434011254784.0, 1979514962439.5, 56529227776.0),
+    ("arctic-480b", "train_4k"): (77131790942208.0, 2702440281407488.0, 1375255086092.1875, 38976159104.0),
+    ("gemma2-9b", "decode_32k"): (13975655552.0, 280602252672.0, 74105074928.0, 3632754688.0),
+    ("gemma2-9b", "prefill_32k"): (3848024096768.0, 80811093917696.0, 77032415495.5, 3626074112.0),
+    ("gemma2-9b", "train_4k"): (6029214482432.0, 138043250966528.0, 336716048647.75, 13845381120.0),
+    ("gemma3-12b", "decode_32k"): (14960204544.0, 106477801984.0, 29404836592.0, 3954104320.0),
+    ("gemma3-12b", "prefill_32k"): (12163852795904.0, 97313584316416.0, 92772478087.5, 11476623360.0),
+    ("gemma3-12b", "train_4k"): (20112163733504.0, 173295458582528.0, 388541182087.75, 42551377920.0),
+    ("internvl2-2b", "decode_32k"): (6139489088.0, 141480877952.0, 37003485424.0, 1584035840.0),
+    ("internvl2-2b", "prefill_32k"): (815777841152.0, 19581751656448.0, 18428709895.5, 753991680.0),
+    ("internvl2-2b", "train_4k"): (1279507824640.0, 33024771096576.0, 43929647062.75, 1565574697.25),
+    ("mamba2-1.3b", "decode_32k"): (20578360.0, 1054199936.0, 328305296.0, 6333406.0),
+    ("mamba2-1.3b", "long_500k"): (1481823.0, 73411195.0, 1627663.5, 33237.0),
+    ("mamba2-1.3b", "prefill_32k"): (131268149248.0, 6301793533952.0, 42234142720.0, 873592832.0),
+    ("mamba2-1.3b", "train_4k"): (481643069440.0, 24391150206976.0, 89640324924.5, 1859092912.0),
+    ("mixtral-8x22b", "decode_32k"): (2305482496.0, 128454827008.0, 33334917504.0, 596654192.0),
+    ("mixtral-8x22b", "long_500k"): (141423692.0, 7827017000.0, 3344410031.5, 60777867.0),
+    ("mixtral-8x22b", "prefill_32k"): (5197497630720.0, 291061517778944.0, 646939841543.5, 11537272832.0),
+    ("qwen2.5-32b", "decode_32k"): (6764187776.0, 427251992320.0, 106232303856.0, 1673226240.0),
+    ("qwen2.5-32b", "prefill_32k"): (3393193246720.0, 217165842612224.0, 205871859207.5, 3201024000.0),
+    ("qwen2.5-32b", "train_4k"): (6708113965056.0, 438971481980928.0, 642160581127.75, 9547914240.0),
+    ("recurrentgemma-9b", "decode_32k"): (431200256.0, 6131452245.333333, 2311454362.6666665, 163066240.0),
+    ("recurrentgemma-9b", "long_500k"): (29137528.0, 392796762.6666666, 205064054.8333333, 16178429.0),
+    ("recurrentgemma-9b", "prefill_32k"): (3809749499904.0, 48256604700672.0, 51758707378.166664, 3629142016.0),
+    ("recurrentgemma-9b", "train_4k"): (8716239765504.0, 123415186898944.0, 177792317447.75, 10296729600.0),
+    ("seamless-m4t-medium", "decode_32k"): (1278752224.0, 14462209728.0, 202413856.0, 16224480.0),
+    ("seamless-m4t-medium", "prefill_32k"): (996970463232.0, 11964878290944.0, 13100002838.5, 1019412480.0),
+    ("seamless-m4t-medium", "train_4k"): (1045422669824.0, 15765658927104.0, 38619309658.75, 2775045686.25),
+    ("stablelm-1.6b", "decode_32k"): (504304064.0, 11900427840.0, 717713648.0, 27893760.0),
+    ("stablelm-1.6b", "prefill_32k"): (775975272448.0, 18624142508032.0, 17344060438.5, 708034560.0),
+    ("stablelm-1.6b", "train_4k"): (1112402034688.0, 29213333651456.0, 62798778988.25, 2442660984.25),
+}
+# ... and its wire_bytes equal to the port's trace of it with torch 2.13 on
+# the CPU (python -m repro_torch.launch.dryrun --device cpu --all --mesh
+# multi --roofline --layout auto).
+GRID_MULTI_SANDBOX_WIRE = {
+    ("arctic-480b", "decode_32k"): 2204144880.0,
+    ("arctic-480b", "prefill_32k"): 152456579040.0,
+    ("arctic-480b", "train_4k"): 355150287435.5,
+    ("gemma2-9b", "decode_32k"): 404985840.0,
+    ("gemma2-9b", "prefill_32k"): 33847796160.0,
+    ("gemma2-9b", "train_4k"): 184096381489.5,
+    ("gemma3-12b", "decode_32k"): 185541360.0,
+    ("gemma3-12b", "prefill_32k"): 45311775840.0,
+    ("gemma3-12b", "train_4k"): 221025066289.5,
+    ("internvl2-2b", "decode_32k"): 388266480.0,
+    ("internvl2-2b", "prefill_32k"): 6375445440.0,
+    ("internvl2-2b", "train_4k"): 33262898225.5,
+    ("mamba2-1.3b", "decode_32k"): 12688560.0,
+    ("mamba2-1.3b", "long_500k"): 1321627.5,
+    ("mamba2-1.3b", "prefill_32k"): 12756156000.0,
+    ("mamba2-1.3b", "train_4k"): 35075802937.0,
+    ("mixtral-8x22b", "decode_32k"): 935293680.0,
+    ("mixtral-8x22b", "long_500k"): 86634127.5,
+    ("mixtral-8x22b", "prefill_32k"): 128762115840.0,
+    ("qwen2.5-32b", "decode_32k"): 2598977520.0,
+    ("qwen2.5-32b", "prefill_32k"): 74374785600.0,
+    ("qwen2.5-32b", "train_4k"): 440795061297.5,
+    ("recurrentgemma-9b", "decode_32k"): 45016560.0,
+    ("recurrentgemma-9b", "long_500k"): 3996817.5,
+    ("recurrentgemma-9b", "prefill_32k"): 20825550080.0,
+    ("recurrentgemma-9b", "train_4k"): 159790420017.5,
+    ("seamless-m4t-medium", "decode_32k"): 4994160.0,
+    ("seamless-m4t-medium", "prefill_32k"): 5716433760.0,
+    ("seamless-m4t-medium", "train_4k"): 21092632113.5,
+    ("stablelm-1.6b", "decode_32k"): 9385200.0,
+    ("stablelm-1.6b", "prefill_32k"): 8815119360.0,
+    ("stablelm-1.6b", "train_4k"): 31790757937.5,
+}
+DRYRUN_MULTI_TIMEOUT_S = 600
+
 
 def dryrun_child() -> None:
     """Phase 8's subprocess: (a) and (b) of the module docstring, printed as
@@ -1971,6 +2060,30 @@ def dryrun_child() -> None:
     print(json.dumps(out), flush=True)
 
 
+def dryrun_multi_child() -> None:
+    """Phase 8 (d)'s subprocess: the multi-pod grid under ``auto``, printed
+    as one JSON line."""
+    import torch
+    sys.path.insert(0, str(SRC))
+    from repro_torch.configs import ARCHS, SHAPES, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.presets import resolve_layout
+
+    if not torch.cuda.is_available():
+        fail("the dry-run's mesh claims cuda: no CUDA runtime")
+    t0 = time.perf_counter()
+    cells = []
+    with dryrun.fake_process_group(512):
+        mesh = make_production_mesh(multi_pod=True, device_type="cuda")
+        for arch in ARCHS:
+            for name, cell_shape in SHAPES.items():
+                rules, rt_over, _ = resolve_layout(get_config(arch), cell_shape, mesh, "auto")
+                cells.append(grid_cell(dryrun.run_cell_roofline(
+                    arch, name, mesh, rules=rules, rt_overrides=rt_over)))
+    print(json.dumps({"d": cells, "d_s": time.perf_counter() - t0}), flush=True)
+
+
 def grid_cell(rec: dict) -> dict:
     """Phase 8 (c)'s record of one cell: its status and terms."""
     cell = {k: rec.get(k) for k in ("arch", "shape", "status", "hlo_flops", "hlo_bytes",
@@ -1984,32 +2097,41 @@ def grid_cell(rec: dict) -> dict:
     return cell
 
 
-def grid_faults(cells: list) -> list:
-    """Phase 8 (c)'s checks: each cell's status is the expected one
-    (``skipped`` where ``cell_runnable`` says so, the error of
+def cell_faults(c: dict, faults: list) -> bool:
+    """The checks of a grid cell that (c) and (d) share: its status is the
+    expected one (``skipped`` where ``cell_runnable`` says so, the error of
     ``GRID_ERRORS``, else ``ok``), and an ``ok`` cell's per-superblock
-    counts and roofline terms are positive, its useful-FLOPs ratio in
-    (0, 1.05], its ``hlo_flops`` at most ``GRID_REFERENCE_FLOPS``' and, at
-    long_500k, equal to ``GRID_SANDBOX_LONG_FLOPS``', its ``wire_bytes`` at
-    most ``GRID_REFERENCE_WIRE``'s and equal to ``GRID_SANDBOX_WIRE``'s."""
+    counts and roofline terms are positive and its useful-FLOPs ratio in
+    (0, 1.05].  Appends the faults; True for an ``ok`` cell."""
     from repro_torch.configs import cell_runnable
 
+    key = (c["arch"], c["shape"])
+    want = ("skipped" if not cell_runnable(*key).runnable
+            else "error" if key in GRID_ERRORS else "ok")
+    if c["status"] != want:
+        faults.append(f"{key}: {c['status']}, not {want}: {c.get('error')}")
+    elif want == "error" and GRID_ERRORS[key] not in c["error"]:
+        faults.append(f"{key}: another error: {c['error']}")
+    elif want == "ok":
+        terms = list(c["per_superblock"].values()) + [
+            v for k, v in c["roofline"].items() if k != "dominant"]
+        ratio = c["useful_flops_ratio"]
+        if min(terms) <= 0 or not (ratio and 0 < ratio <= GRID_MAX_USEFUL_RATIO):
+            faults.append(f"{key}: a term <= 0 or the useful-FLOPs ratio {ratio} "
+                          f"out of (0, {GRID_MAX_USEFUL_RATIO}]: {c}")
+        return True
+    return False
+
+
+def grid_faults(cells: list) -> list:
+    """Phase 8 (c)'s checks: :func:`cell_faults`, and an ``ok`` cell's
+    ``hlo_flops`` at most ``GRID_REFERENCE_FLOPS``' and, at long_500k,
+    equal to ``GRID_SANDBOX_LONG_FLOPS``', its ``wire_bytes`` at most
+    ``GRID_REFERENCE_WIRE``'s and equal to ``GRID_SANDBOX_WIRE``'s."""
     faults = []
     for c in cells:
         key = (c["arch"], c["shape"])
-        want = ("skipped" if not cell_runnable(*key).runnable
-                else "error" if key in GRID_ERRORS else "ok")
-        if c["status"] != want:
-            faults.append(f"{key}: {c['status']}, not {want}: {c.get('error')}")
-        elif want == "error" and GRID_ERRORS[key] not in c["error"]:
-            faults.append(f"{key}: another error: {c['error']}")
-        elif want == "ok":
-            terms = list(c["per_superblock"].values()) + [
-                v for k, v in c["roofline"].items() if k != "dominant"]
-            ratio = c["useful_flops_ratio"]
-            if min(terms) <= 0 or not (ratio and 0 < ratio <= GRID_MAX_USEFUL_RATIO):
-                faults.append(f"{key}: a term <= 0 or the useful-FLOPs ratio {ratio} "
-                              f"out of (0, {GRID_MAX_USEFUL_RATIO}]: {c}")
+        if cell_faults(c, faults):
             if c["hlo_flops"] > GRID_REFERENCE_FLOPS[key]:
                 faults.append(f"{key}: hlo_flops {c['hlo_flops']} over the reference's "
                               f"{GRID_REFERENCE_FLOPS[key]}")
@@ -2022,6 +2144,29 @@ def grid_faults(cells: list) -> list:
             if c["wire_bytes"] != GRID_SANDBOX_WIRE[key]:
                 faults.append(f"{key}: wire_bytes {c['wire_bytes']}, not the CPU trace's "
                               f"{GRID_SANDBOX_WIRE[key]}")
+    return faults
+
+
+def multi_grid_faults(cells: list) -> list:
+    """Phase 8 (d)'s checks: :func:`cell_faults`, and an ``ok`` cell's
+    FLOPs and wire bytes, in all and a superblock, at most
+    ``GRID_MULTI_REFERENCE``'s and its ``wire_bytes`` equal to
+    ``GRID_MULTI_SANDBOX_WIRE``'s."""
+    faults = []
+    for c in cells:
+        key = (c["arch"], c["shape"])
+        if not cell_faults(c, faults):
+            continue
+        per = c["per_superblock"]
+        for what, got, ref in zip(
+                ("per-superblock FLOPs", "hlo_flops", "wire_bytes", "per-superblock wire"),
+                (per["flops"], c["hlo_flops"], c["wire_bytes"], per["wire"]),
+                GRID_MULTI_REFERENCE[key]):
+            if got > ref:
+                faults.append(f"{key}: {what} {got} over the reference's {ref}")
+        if c["wire_bytes"] != GRID_MULTI_SANDBOX_WIRE[key]:
+            faults.append(f"{key}: wire_bytes {c['wire_bytes']}, not the CPU trace's "
+                          f"{GRID_MULTI_SANDBOX_WIRE[key]}")
     return faults
 
 
@@ -2081,12 +2226,34 @@ def dryrun_phase(card: str, prod: dict) -> dict:
     faults = grid_faults(grid)
     if faults:
         fail("phase 8 (c): " + "; ".join(faults))
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                               "--dryrun-multi-child"], capture_output=True, text=True,
+                              timeout=DRYRUN_MULTI_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        fail(f"phase 8 (d)'s dry-run did not finish in {DRYRUN_MULTI_TIMEOUT_S} s")
+    if proc.returncode != 0:
+        fail(f"phase 8 (d)'s dry-run exited {proc.returncode}: {proc.stderr[-3000:]}")
+    multi = json.loads(proc.stdout.strip().splitlines()[-1])
+    grid = multi["d"]
+    log("dryrun8d " + json.dumps({
+        "card": card, "mesh": "2x16x16", "layout": "auto", "cells": grid,
+        "statuses": {s: sum(c["status"] == s for c in grid)
+                     for s in ("ok", "error", "skipped")},
+        "s": multi["d_s"], "phase_s": time.perf_counter() - t0}))
+    faults = multi_grid_faults(grid)
+    if faults:
+        fail("phase 8 (d): " + "; ".join(faults))
     return report
 
 
 def main() -> None:
     if "--dryrun-child" in sys.argv[1:]:
         dryrun_child()
+        return
+    if "--dryrun-multi-child" in sys.argv[1:]:
+        dryrun_multi_child()
         return
     if not (SRC / "repro_torch").is_dir():
         fail(f"the port's sources are missing: no {SRC / 'repro_torch'}")

@@ -25,7 +25,9 @@ takes the role of the dim it shards), so that the state never moves.
 
 :func:`regroup` splits a tensor sharded on its last dim into pieces that
 are each sharded evenly, with one all-to-all of the elements that change
-rank (a projection whose outputs do not fall on its shards' bounds).
+rank (a projection whose outputs do not fall on its shards' bounds), and
+:func:`repeat_heads` gives each rank the K/V heads of its q heads the same
+way.
 """
 
 from __future__ import annotations
@@ -35,8 +37,8 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 
 __all__ = ["block_index", "is_dtensor", "last_row", "move_split", "one_row",
-           "per_shard", "regroup", "row_offset", "rows_split", "shard_layout",
-           "split_dim"]
+           "per_shard", "regroup", "repeat_heads", "row_offset", "rows_split",
+           "shard_layout", "split_dim"]
 
 Roles = Tuple[Optional[str], ...]
 
@@ -162,7 +164,6 @@ def regroup(x, sizes: Sequence[int]):
     n = x.device_mesh.size(dims[0]) if len(dims) == 1 else 0
     if not n or any(s % n for s in sizes):
         return torch.split(split_dim(x, -1, 1), sizes, dim=-1)
-    import torch.distributed._functional_collectives as funcol
     from torch.distributed.tensor import DTensor
 
     mesh, m = x.device_mesh, dims[0]
@@ -191,12 +192,7 @@ def regroup(x, sizes: Sequence[int]):
                 at += hi - lo
         out_splits.append(at - sum(out_splits))
     order = [i for j in range(len(sizes)) for r in range(n) for i in seg.get((j, r), ())]
-    dev = x.to_local().device
-    local = x.to_local().index_select(-1, torch.tensor(send, device=dev))
-    a2a = (funcol.all_to_all_single_autograd if local.requires_grad
-           else funcol.all_to_all_single)
-    got = a2a(local.movedim(-1, 0).contiguous(), out_splits, in_splits, (mesh, m))
-    got = got.movedim(0, -1).index_select(-1, torch.tensor(order, device=dev))
+    got = _exchange(x, m, send, in_splits, out_splits, order)
     out = []
     for piece, size in zip(torch.split(got, [s // n for s in sizes], dim=-1), sizes):
         shape = torch.Size(tuple(x.shape[:-1]) + (size,))
@@ -205,6 +201,71 @@ def regroup(x, sizes: Sequence[int]):
                                       shape=shape,
                                       stride=torch.empty(shape, device="meta").stride()))
     return out
+
+
+def _exchange(x, m: int, send, in_splits, out_splits, order):
+    """The elements ``send`` of the last dim of the DTensor ``x``'s local
+    piece, sent ``in_splits`` to each rank of mesh dim ``m`` in one
+    all-to-all (its gradient the reverse one), the ``out_splits`` received
+    put in ``order``: a local tensor."""
+    import torch.distributed._functional_collectives as funcol
+
+    local = x.to_local()
+    idx = lambda i: torch.tensor(i, device=local.device, dtype=torch.long)  # noqa: E731
+    local = local.index_select(-1, idx(send))
+    a2a = (funcol.all_to_all_single_autograd if local.requires_grad
+           else funcol.all_to_all_single)
+    got = a2a(local.movedim(-1, 0).contiguous(), out_splits, in_splits,
+              (x.device_mesh, m))
+    return got.movedim(0, -1).index_select(-1, idx(order))
+
+
+def repeat_heads(y, n_heads: int, reps: int):
+    """``y`` (..., n_heads * dh) as (..., n_heads * reps, dh), each head
+    repeated ``reps`` times in place (``repeat_interleave``: GQA's K/V for
+    the q heads), for a DTensor ``y`` split on its last dim over one mesh
+    dim whose size divides the repeated heads but not ``n_heads`` (a K/V
+    projection whose heads the mesh dim does not divide, where the q heads
+    it does): the result is split on its heads there, and each rank
+    receives the columns of its heads' sources from the ranks that hold
+    them in one all-to-all (a few ranks each, where a gather would take
+    every rank's), its gradient the reverse one, summed where a column went
+    to several heads.  None where ``y`` is not so split."""
+    if not is_dtensor(y) or any(pl.is_partial() for pl in y.placements):
+        return None
+    last = y.dim() - 1
+    dims = [i for i, pl in enumerate(y.placements) if pl.is_shard(last)]
+    if len(dims) != 1:
+        return None
+    mesh, m = y.device_mesh, dims[0]
+    n, heads, dh = mesh.size(m), n_heads * reps, y.shape[-1] // n_heads
+    if heads % n or n_heads % n == 0 or y.shape[-1] % n:
+        return None
+    from torch.distributed.tensor import DTensor, Shard
+
+    rank, chunk, per = mesh.get_local_rank(m), y.shape[-1] // n, heads // n
+
+    def need(r):
+        """The columns rank r's heads take, in their order."""
+        return [(h // reps) * dh + i for h in range(r * per, (r + 1) * per)
+                for i in range(dh)]
+
+    send, in_splits = [], []
+    for r in range(n):
+        cols = sorted(c - rank * chunk for c in set(need(r)) if c // chunk == rank)
+        send += cols
+        in_splits.append(len(cols))
+    got = sorted(set(need(rank)), key=lambda c: (c // chunk, c))
+    out_splits = [sum(1 for c in got if c // chunk == q) for q in range(n)]
+    where = {c: i for i, c in enumerate(got)}
+    out = _exchange(y, m, send, in_splits, out_splits, [where[c] for c in need(rank)])
+    out = out.reshape(*out.shape[:-1], per, dh)
+    shape = torch.Size(tuple(y.shape[:-1]) + (heads, dh))
+    return DTensor.from_local(out.contiguous(), mesh,
+                              [Shard(last) if i == m else pl
+                               for i, pl in enumerate(y.placements)],
+                              run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta").stride())
 
 
 def shard_layout(anchor, anchor_roles: Roles, heads: Sequence[int], *,

@@ -29,7 +29,7 @@ import torch
 from torch import nn
 
 from ..configs.base import ModelConfig
-from ..kernels._local import is_dtensor, move_split, per_shard, split_dim
+from ..kernels._local import is_dtensor, move_split, per_shard, repeat_heads, split_dim
 from ..kernels.flash_attention import flash_attention
 from ..kernels.flash_attention.ops import KV_ROLES, Q_ROLES, gqa_per_shard
 from .common import (Initializer, Kept, RuntimeConfig, apply_rope, dense_apply,
@@ -52,13 +52,20 @@ def attn_init(ini: Initializer, cfg: ModelConfig, dtype) -> nn.ModuleDict:
 
 
 def _project(p, x: torch.Tensor, n_heads: int, dh: int,
-             rt: Optional[RuntimeConfig] = None) -> torch.Tensor:
+             rt: Optional[RuntimeConfig] = None, q_heads: int = 0) -> torch.Tensor:
     """x's projection as (B, S, heads, dh); with ``rt``, in the layout of
-    its heads constraint's sequence mode from the start."""
+    its heads constraint's sequence mode from the start.  With ``q_heads``
+    (K/V that no cache takes), a projection split on heads that its mesh
+    dim does not divide comes as the q heads' K/V, each rank's own
+    (``kernels/_local.py::repeat_heads``), in place of being gathered."""
     B, S, _ = x.shape
     y = dense_apply(p, x)
     if rt is not None:
         y = rt.seq_constraint(y)
+    if q_heads and q_heads != n_heads:
+        rep = repeat_heads(y, n_heads, q_heads // n_heads)
+        if rep is not None:
+            return rep
     return split_dim(y, -1, n_heads).reshape(B, S, n_heads, dh)
 
 
@@ -84,8 +91,9 @@ def attn_apply(
     Hq, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     src = x if kv_x is None else kv_x
     q = rt.heads_constraint(_project(params["wq"], x, Hq, dh, rt))
-    k = rt.heads_constraint(_project(params["wk"], src, Hkv, dh, rt))
-    v = rt.heads_constraint(_project(params["wv"], src, Hkv, dh, rt))
+    reps = 0 if return_kv else Hq
+    k = rt.heads_constraint(_project(params["wk"], src, Hkv, dh, rt, reps))
+    v = rt.heads_constraint(_project(params["wv"], src, Hkv, dh, rt, reps))
     if use_rope and kv_x is None:
         if positions is None:
             positions = torch.arange(S, device=x.device)

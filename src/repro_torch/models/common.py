@@ -31,7 +31,7 @@ __all__ = ["RuntimeConfig", "Initializer", "resolve_device", "rmsnorm",
            "layernorm", "norm_init", "norm_apply", "dense_init", "dense_apply",
            "mlp_init", "mlp_apply", "apply_rope", "softcap", "on_use", "Kept", "weight",
            "keep_layout",
-           "linear", "sharded_matmul"]
+           "linear", "sharded_matmul", "gather"]
 
 
 @dataclass(frozen=True)
@@ -165,12 +165,50 @@ def on_use(p, x=None):
             # DTensor has no sharding strategy for aten.detach_
             with torch.inference_mode(False):
                 p = p.detach()
-        w = p.redistribute(p.device_mesh, layout)
+        w = gather(p, layout)
         return Kept(w, kept) if kept else w
     first = next(p.parameters(), None)
     if getattr(first, "on_use", None) is None:
         return p
     return {k: on_use(v, x) for k, v in p.items()}
+
+
+def gather(p, layout):
+    """The DTensor ``p`` redistributed to ``layout``, its gradient
+    reduce-scattered onto p's shards first where it comes as a partial sum
+    on the mesh dims that ``layout`` gathers (:class:`_ShardGradFirst`); a
+    ``p`` that requires grad and is laid out so, itself (a redistribute to
+    its own layout would make such a gradient whole, all-reduced, before
+    that reduce-scatter)."""
+    if p.requires_grad and tuple(p.placements) == tuple(layout):
+        return p
+    w = p.redistribute(p.device_mesh, layout)
+    if not w.requires_grad:
+        return w
+    return _ShardGradFirst.apply(w, {i: pl for i, (pl, use) in
+                                     enumerate(zip(p.placements, layout))
+                                     if pl.is_shard() and not use.is_shard()})
+
+
+class _ShardGradFirst(torch.autograd.Function):
+    """The identity on a gathered weight, whose gradient is reduce-scattered
+    onto the weight's FSDP shards (``shards``: mesh dim -> placement) where
+    it comes as a partial sum there, before the gather's own backward
+    reduces the rest: a partial sum over a mesh dim the weight is whole on
+    (the multi-pod mesh's "pod") is then all-reduced on the shard, not on
+    the whole gradient, whose order DTensor's planner would otherwise
+    choose."""
+
+    @staticmethod
+    def forward(ctx, w, shards):
+        ctx.shards = shards
+        return w.view_as(w)
+
+    @staticmethod
+    def backward(ctx, g):
+        pl = [ctx.shards.get(i, q) if q.is_partial() else q
+              for i, q in enumerate(g.placements)]
+        return g.redistribute(g.device_mesh, pl), None
 
 
 def _fsdp_kept(p, layout, x) -> tuple:
@@ -179,11 +217,11 @@ def _fsdp_kept(p, layout, x) -> tuple:
     weight keeps it where ``x`` is whole, and at one token a row
     (:func:`~repro_torch.kernels._local.one_row`, decode) where the
     activations that move instead (the batch's rows by p's two dims, in
-    and out) hold fewer elements than p.  An expert stack (3-d) split
-    there on d_model (not on its experts) keeps it at one token a row under
-    the same count (one expert's dims) where x's batch is not split (the
-    one-row residual stream,
-    :meth:`~repro_torch.train.sharding.ActivationSharding.hidden`)."""
+    and out) hold fewer elements than p.  An expert stack (3-d) keeps it
+    at one token a row under the same count (one expert's dims): split on
+    its experts, always (expert-parallel decode, ``models/moe.py``), and
+    split on d_model where x's batch is not split (the one-row residual
+    stream, :meth:`~repro_torch.train.sharding.ActivationSharding.hidden`)."""
     if p.dim() not in (2, 3) or not is_dtensor(x):
         return ()
     d_in, d_out = p.shape[-2:]
@@ -192,7 +230,7 @@ def _fsdp_kept(p, layout, x) -> tuple:
     def keep(pl, xpl):
         if p.dim() == 2:
             return small or xpl.is_replicate()
-        return small and not xpl.is_shard(0) and not pl.is_shard(0)
+        return small and (pl.is_shard(0) or not xpl.is_shard(0))
 
     return tuple(i for i, (pl, use, xpl) in enumerate(zip(p.placements, layout,
                                                           x.placements))
@@ -215,6 +253,8 @@ def linear(x: torch.Tensor, w) -> torch.Tensor:
     if isinstance(w, Kept):
         return sharded_matmul(x, w.w.to(x.dtype), w.dims)
     rows = rows_split(x) if is_dtensor(w) else ()
+    if not rows:
+        return x @ w.to(x.dtype)
     if any(w.placements[i].is_shard() for i in rows):
         from torch.distributed.tensor import Replicate
 
@@ -222,8 +262,7 @@ def linear(x: torch.Tensor, w) -> torch.Tensor:
             w = w.to(x.dtype)
         w = w.redistribute(w.device_mesh, [Replicate() if i in rows else pl
                                            for i, pl in enumerate(w.placements)])
-        return sharded_matmul(x, w.to(x.dtype))
-    return x @ w.to(x.dtype)
+    return sharded_matmul(x, w.to(x.dtype))
 
 
 def sharded_matmul(x: torch.Tensor, w: torch.Tensor, kept: Tuple[int, ...] = ()

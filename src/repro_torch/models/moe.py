@@ -23,7 +23,11 @@ Sharded (DTensor) runs: ``moe_apply`` and ``moe_decode`` run per shard
 (:func:`repro_torch.kernels._local.per_shard`), tokens on the batch's mesh
 dims and the experts' d_ff over the others where it divides, each rank's
 output a partial sum there (tensor-parallel experts); ``moe_apply`` raises
-where a shard's token groups would not be the global batch's.
+where a shard's token groups would not be the global batch's.  At one row
+a rank split on its sequence, ``moe_apply`` routes each rank's own groups
+(``_moe_rows``); at one token a row, ``moe_decode`` runs expert stacks
+split on their experts where they lie (``_moe_decode_ep``) and stacks split
+on d_model on that split (``_moe_decode_kept``).
 ``moe_apply_shardmap`` takes each rank's rows and its experts' weights (the
 expert axis of their ``on_use`` layout) as local tensors and gives their
 gradients back as partial sums over the mesh dims that split the tokens.
@@ -39,8 +43,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ModelConfig
-from ..kernels._local import is_dtensor, per_shard, shard_layout
-from .common import Initializer, Kept, RuntimeConfig, linear, weight
+from ..kernels._local import block_index, is_dtensor, per_shard, rows_split, shard_layout
+from .common import Initializer, Kept, RuntimeConfig, gather, linear, weight
 
 __all__ = ["moe_init", "moe_apply", "moe_apply_shardmap", "moe_decode",
            "moe_groups"]
@@ -146,25 +150,114 @@ def moe_apply(p, x: torch.Tensor, cfg: ModelConfig, rt: RuntimeConfig
             raise ValueError(
                 f"a shard's {n_local} tokens group otherwise than the batch's "
                 f"{x.shape[0] * x.shape[1]} (moe_group_size {rt.moe_group_size})")
+        if _groups_on_rows(p, x, cfg, rt):
+            return _moe_rows(p, x, cfg, rt)
         return _moe_per_shard(lambda q, y: moe_apply(q, y, cfg, rt), p, x, cfg, True)
     B, S, D = x.shape
-    E = cfg.n_experts
     G, g, C = moe_groups(B * S, cfg, rt)
-    xg = x.reshape(G, g, D)
-    gate, idx, probs = _route(p, xg, cfg)                      # (G, g, K)
-    aux = _aux_loss(probs, idx, E)
-    dispatch, combine = _dispatch_combine(gate, idx, E, C)
-
-    cd = x.dtype
-    xd = torch.einsum("gtec,gtd->gecd", dispatch.to(cd), xg)   # (G, E, C, D)
+    xd, combine, aux = _dispatch_groups(p, x.reshape(G, g, D), cfg, C)
     xd = rt.moe_constraint(xd)          # -> expert-major (all-to-all under EP)
+    ye = rt.moe_constraint(_experts(p, xd))     # stay expert-major until combine
+    y = torch.einsum("gtec,gecd->gtd", combine.to(x.dtype), ye)
+    return y.reshape(B, S, D), aux
+
+
+def _dispatch_groups(p, xg: torch.Tensor, cfg: ModelConfig, C: int):
+    """Route the token groups ``xg`` (G, g, D) and dispatch them: the
+    experts' slots (G, E, C, D), the combine weights (G, g, E, C) and the
+    aux loss of these groups."""
+    E = cfg.n_experts
+    gate, idx, probs = _route(p, xg, cfg)                      # (G, g, K)
+    dispatch, combine = _dispatch_combine(gate, idx, E, C)
+    xd = torch.einsum("gtec,gtd->gecd", dispatch.to(xg.dtype), xg)   # (G, E, C, D)
+    return xd, combine, _aux_loss(probs, idx, E)
+
+
+def _experts(p, xd: torch.Tensor) -> torch.Tensor:
+    """The experts' gated MLP on their slots (G, E, C, D)."""
+    cd = xd.dtype
     h = torch.einsum("gecd,edf->gecf", xd, p["wi"].to(cd))
     gt = torch.einsum("gecd,edf->gecf", xd, p["wg"].to(cd))
-    h = h * F.silu(gt)
-    ye = torch.einsum("gecf,efd->gecd", h, p["wo"].to(cd))
-    ye = rt.moe_constraint(ye)          # stay expert-major until combine
-    y = torch.einsum("gtec,gecd->gtd", combine.to(cd), ye)
-    return y.reshape(B, S, D), aux
+    return torch.einsum("gecf,efd->gecd", h * F.silu(gt), p["wo"].to(cd))
+
+
+def _groups_on_rows(p, x, cfg: ModelConfig, rt: RuntimeConfig) -> bool:
+    """Whether :func:`_moe_rows` runs ``x``: split on its sequence (a rows
+    split) at one row a rank, its ranks' rows made of whole token groups,
+    and the experts' d_ff split on every mesh dim that splits the rows."""
+    rows = rows_split(x)
+    wi = p["wi"]
+    if not rows or not is_dtensor(wi):
+        return False
+    mesh = x.device_mesh
+    b_loc, s_loc = x.shape[0], x.shape[1]
+    for i, pl in enumerate(x.placements):
+        b_loc //= mesh.size(i) if pl.is_shard(0) else 1
+        s_loc //= mesh.size(i) if pl.is_shard(1) else 1
+    g = moe_groups(x.shape[0] * x.shape[1], cfg, rt)[1]
+    return (b_loc == 1 and s_loc % g == 0
+            and all(wi.placements[i].is_shard(2) for i in rows))
+
+
+def _moe_rows(p, x, cfg: ModelConfig, rt: RuntimeConfig):
+    """:func:`moe_apply` on ``x`` split on its sequence at one row a rank
+    (``_groups_on_rows``): each rank routes and dispatches its own token
+    groups (the batch's groups: its rows hold whole ones), the slots are
+    gathered on the mesh dims that split the experts' d_ff, each rank runs
+    its d_ff slice of the experts on them, and the partial outputs are
+    reduce-scattered back to the groups' ranks, which combine their own.
+    The router and the dispatch and combine einsums run once a token, not
+    once a rank of the rows' split, for slots gathered in place of x.  At
+    more rows a rank, x is gathered instead (``_moe_per_shard``), which
+    moves less; the aux loss is the mean over the shards' groups, as there."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, D = x.device_mesh, x.shape[-1]
+    _, g, C = moe_groups(x.shape[0] * x.shape[1], cfg, rt)
+    x_pl = list(x.placements)
+    tok = [Shard(0) if pl.is_shard() else Replicate() for pl in x_pl]
+    n_tok = 1
+    for i, pl in enumerate(x_pl):
+        n_tok *= mesh.size(i) if pl.is_shard() else 1
+    whole = [Replicate()] * mesh.ndim
+
+    def route(xl, router):
+        xd, combine, aux = _dispatch_groups({"router": router}, xl.reshape(-1, g, D),
+                                            cfg, C)
+        return xd, combine, aux / n_tok
+
+    router = weight(p["router"])
+    part = [Partial() if pl.is_shard() else Replicate() for pl in x_pl]
+    xd, combine, aux = local_map(
+        route, out_placements=(tok, tok, part), in_placements=(x_pl, whole),
+        in_grad_placements=(x_pl, part), device_mesh=mesh,
+        redistribute_inputs=True)(x, router)
+    wi, wg, wo = p["wi"], p["wg"], p["wo"]
+    f_dims = [i for i, pl in enumerate(wi.placements) if pl.is_shard(2)]
+    xd_pl = [Replicate() if i in f_dims else pl for i, pl in enumerate(tok)]
+    xd = xd.redistribute(mesh, xd_pl)
+
+    def w_grad(w):
+        return [pl if pl.is_shard() else (Partial() if xd_pl[i].is_shard() else Replicate())
+                for i, pl in enumerate(w.placements)]
+
+    ye = local_map(
+        lambda xd, wi, wg, wo: _experts({"wi": wi, "wg": wg, "wo": wo}, xd),
+        out_placements=[Partial() if i in f_dims else pl for i, pl in enumerate(xd_pl)],
+        in_placements=(xd_pl, list(wi.placements), list(wg.placements),
+                       list(wo.placements)),
+        in_grad_placements=([Partial() if i in f_dims else pl for i, pl in enumerate(xd_pl)],
+                            w_grad(wi), w_grad(wg), w_grad(wo)),
+        device_mesh=mesh, redistribute_inputs=True)(xd, wi, wg, wo)
+    ye = ye.redistribute(mesh, tok)
+
+    def combine_fn(ye, combine):                # a rank's one row
+        return torch.einsum("gtec,gecd->gtd", combine.to(ye.dtype), ye).reshape(1, -1, D)
+
+    y = local_map(combine_fn, out_placements=x_pl, in_placements=(tok, tok),
+                  device_mesh=mesh, redistribute_inputs=True)(ye, combine)
+    return y, aux
 
 
 # ---------------------------------------------------------------------------
@@ -259,14 +352,13 @@ def _shardmap_dtensor(p, x, cfg: ModelConfig, rt: RuntimeConfig):
     b_axes = rules.batch_spec_axes(x.shape[0]) or ()
     x_pl = tuple(Shard(0) if a in b_axes else Replicate() for a in names)
     xl = x.redistribute(mesh, x_pl).to_local(grad_placements=x_pl)
-    tp = rules.tp_axis
+    tp = _group_axis(rules)
     n_tp = rules.size(tp) if tp else 1
     G = moe_groups(xl.shape[0] * xl.shape[1], cfg, rt)[0]
     splits = set(b_axes) | ({tp} if tp and n_tp > 1 and G % n_tp == 0 else set())
 
     def local(w, keep):
-        w = w.redistribute(mesh, tuple(Shard(0) if a == keep else Replicate()
-                                       for a in names))
+        w = gather(w, tuple(Shard(0) if a == keep else Replicate() for a in names))
         grad = tuple(pl if pl.is_shard() else (Partial() if a in splits else Replicate())
                      for a, pl in zip(names, w.placements))
         return w.to_local(grad_placements=grad)
@@ -279,6 +371,14 @@ def _shardmap_dtensor(p, x, cfg: ModelConfig, rt: RuntimeConfig):
                            stride=x.stride())
     aux = DTensor.from_local(aux, mesh, (Replicate(),) * len(names), run_check=False)
     return y, aux
+
+
+def _group_axis(rules):
+    """The mesh axis over which :func:`moe_apply_shardmap` splits each
+    rank's token groups: tp, as the reference's, or where the layout has no
+    tp, the axis that splits the sequence (ZeRO-3 with sequence
+    parallelism, where the reference runs every group on each of its ranks)."""
+    return rules.tp_axis if rules.tp_axis else rules.seq_axis
 
 
 def moe_apply_shardmap(p, x: torch.Tensor, cfg: ModelConfig, rt: RuntimeConfig,
@@ -312,7 +412,7 @@ def moe_apply_shardmap(p, x: torch.Tensor, cfg: ModelConfig, rt: RuntimeConfig,
     rules = rt.act_sharding.rules
     mesh = rules.mesh
     ea = rules.expert_axis or "data"
-    tp = rules.tp_axis
+    tp = _group_axis(rules)
     if isinstance(ea, tuple) or isinstance(tp, tuple):
         raise ValueError(f"moe_apply_shardmap takes one mesh axis for experts and "
                          f"one for tp, not {ea!r} and {tp!r}")
@@ -370,6 +470,9 @@ def moe_decode(p, x: torch.Tensor, cfg: ModelConfig, rt: RuntimeConfig
                ) -> torch.Tensor:
     """x: (B, 1, D).  Dense all-expert compute, top-k combine."""
     if isinstance(p["wi"], Kept):
+        wi = p["wi"]
+        if all(wi.w.placements[i].is_shard(0) for i in wi.dims):
+            return _moe_decode_ep(p, x, cfg)
         return _moe_decode_kept(p, x, cfg)
     if is_dtensor(x):
         return _moe_per_shard(lambda q, y: moe_decode(q, y, cfg, rt), p, x, cfg, False)
@@ -380,14 +483,55 @@ def moe_decode(p, x: torch.Tensor, cfg: ModelConfig, rt: RuntimeConfig
     return _combine(h * F.silu(g), p["wo"].to(cd), gate, idx, cfg)
 
 
-def _combine(a, wo, gate, idx, cfg: ModelConfig):
-    """The top-k gates' sum of the experts' outputs ``a`` @ ``wo``."""
+def _combine(a, wo, gate, idx, cfg: ModelConfig, e0: int = 0):
+    """The top-k gates' sum of the experts' outputs ``a`` @ ``wo``; ``a``
+    and ``wo`` may hold the experts from ``e0`` on only (a rank's share of
+    them: the result is then its partial sum)."""
     B, S, E = a.shape[0], a.shape[1], cfg.n_experts
     ye = torch.einsum("btef,efd->bted", a, wo)                 # (B,1,E,D)
     w = torch.zeros((B, S, E), dtype=torch.float32, device=a.device)
     for k_i in range(cfg.experts_per_token):
         w = w + F.one_hot(idx[..., k_i], E).float() * gate[..., k_i][..., None]
+    w = w[..., e0:e0 + a.shape[2]]
     return torch.einsum("bte,bted->btd", w.to(a.dtype), ye)
+
+
+def _moe_decode_ep(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """:func:`moe_decode` whose expert stacks kept their split of the
+    experts (``on_use`` at one token a row; arctic-480b's 128 experts on
+    "data"): the experts stay where they lie and the tokens come to them.
+    x and the router's logits are gathered on the mesh dims that split the
+    experts (the batch's rows there: a few tokens), each rank runs its
+    experts (its d_ff slice, where d_ff is split) on every gathered row and
+    gives its share of the gated sum, and the partial sums are
+    reduce-scattered back to the rows' ranks (all-reduced over d_ff's
+    split)."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    ep = p["wi"].dims
+    wi, wg, wo = (weight(p[k]) for k in ("wi", "wg", "wo"))
+    mesh, cd = x.device_mesh, x.dtype
+    logits = linear(x.float(), p["router"])
+    rows = [Replicate() if i in ep or pl.is_partial() else pl
+            for i, pl in enumerate(x.placements)]
+    x_all, logits = x.redistribute(mesh, rows), logits.redistribute(mesh, rows)
+    index = block_index(mesh, ep)[0]           # this rank's block of experts
+
+    def local(x, logits, wi, wg, wo):
+        gate, idx, _ = _top_k(logits, cfg)
+        h = torch.einsum("btd,edf->btef", x, wi.to(cd))
+        g = torch.einsum("btd,edf->btef", x, wg.to(cd))
+        return _combine(h * F.silu(g), wo.to(cd), gate, idx, cfg, index * wi.shape[0])
+
+    out_pl = [Partial() if i in ep or wi.placements[i].is_shard(2) else pl
+              for i, pl in enumerate(rows)]
+    y = local_map(local, out_placements=out_pl, device_mesh=mesh,
+                  in_placements=(rows, rows, list(wi.placements), list(wg.placements),
+                                 list(wo.placements)),
+                  redistribute_inputs=True)(x_all, logits, wi, wg, wo)
+    return y.redistribute(mesh, [Replicate() if pl.is_partial() else pl
+                                 for pl in x.placements])
 
 
 def _moe_decode_kept(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

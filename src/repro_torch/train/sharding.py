@@ -565,30 +565,42 @@ class ActivationSharding:
         ea = r.axis_if_divides(r.expert_axis, x.shape[1])
         return constrain(x, r, (None, ea, None, None))
 
+    def _seq_attn_axis(self):
+        """The mesh axis that splits q/k/v's sequence in mode "seq": tp, or
+        ``seq_axis`` where the layout has no tp (ZeRO-3 with sequence
+        parallelism, the multi-pod mesh's ``zero3`` and ``moe_ep``)."""
+        r = self.rules
+        return r.tp_axis if r.tp_axis is not None else r.seq_axis
+
     def _seq_mode(self, x) -> bool:
         r = self.rules
-        return (r.attn_shard_mode == "seq" and x.shape[1] > 1
-                and x.shape[1] % max(r.size(r.tp_axis), 1) == 0)
+        axis = self._seq_attn_axis()
+        return (r.attn_shard_mode == "seq" and axis is not None and x.shape[1] > 1
+                and x.shape[1] % r.size(axis) == 0)
 
     def heads(self, x):
         """(B, S, H, dh) q/k/v: heads over tp when divisible (else
-        replicated), or the sequence over tp in mode "seq" (context
-        parallelism: the attention then splits the query rows over tp and
-        gathers K/V, ``kernels/_local.py``, and its output stays sharded on
-        the sequence)."""
+        replicated), or the sequence over tp (``seq_axis`` where there is no
+        tp) in mode "seq" (context parallelism: the attention then splits the
+        query rows there and gathers K/V, ``kernels/_local.py``, and its
+        output stays sharded on the sequence).  Without tp the reference's
+        rule constrains q/k/v to P(batch, None, None, None), whole on
+        ``seq_axis``, and leaves the attention's split to GSPMD; here the
+        sequence stays split where the residual stream splits it (a layout
+        of the port's own, as :meth:`hidden`'s)."""
         r = self.rules
         b_axes = r.batch_spec_axes(x.shape[0])
         if self._seq_mode(x):
-            return constrain(x, r, (b_axes, r.tp_axis, None, None))
+            return constrain(x, r, (b_axes, self._seq_attn_axis(), None, None))
         return constrain(x, r, (b_axes, None, r.axis_if_divides(r.tp_axis, x.shape[2]),
                                 None))
 
     def attn_seq(self, x):
-        """(B, S, H * dh) q/k/v projections in mode "seq": the sequence over
-        tp before the heads' view, as :meth:`heads` lays them out (an
+        """(B, S, H * dh) q/k/v projections in mode "seq": the sequence
+        split as :meth:`heads` lays it out, before the heads' view (an
         all-to-all of the projection's shards; heads that do not divide tp
         would otherwise be gathered whole first); else left alone."""
         r = self.rules
         if not self._seq_mode(x):
             return x
-        return constrain(x, r, (r.batch_spec_axes(x.shape[0]), r.tp_axis, None))
+        return constrain(x, r, (r.batch_spec_axes(x.shape[0]), self._seq_attn_axis(), None))
