@@ -27,7 +27,10 @@ Phases (any failure exits non-zero before the last line is printed):
    with the keys past Sk that the kernel pads its last tile with; mixtral's
    wave A (48 q on 8 KV heads of 128, window 4096, the same pads), and
    seamless's non-causal encoder (4 x 1024 x 16 x 64) and cross-attention
-   (Sq 256, Sk 1024), with SDPA on the same masks; and a query-rows split
+   (Sq 256, Sk 1024), with SDPA on the same masks; phase 4e's gemma3-12b
+   local layer (16 q on 8 KV heads of 256, window 1024) and stablelm-1.6b's
+   multi-head attention (32 on 32 heads of 64, causal) on the same padded
+   rows, with SDPA; and a query-rows split
    at qwen2.5-32b prefill_32k's per-rank shape on the dry-run's 16 "model"
    ranks (q 2 x 2048 of 32768 keys, 40 q on 8 KV heads of 128, causal):
    the first and busiest rank (q_offset 0 and 30720) as two of those cases,
@@ -77,6 +80,20 @@ Phases (any failure exits non-zero before the last line is printed):
    ``forward`` of 4 x 1024 frames and 4 x 256 tokens (36: the 12
    cross-attentions at Sq 256, Sk 1024 too); logits finite, of the right
    shape, the padded vocab at -1e30;
+4e. serve stablelm-1.6b (24 layers, multi-head at head_dim 64, layernorm
+   with bias), internvl2-2b (24), gemma3-12b (48: 40 local with a 1024-token
+   window and 8 global, head_dim 256, tied 262,144-token vocabulary) and
+   qwen2.5-32b (64, QKV bias, GQA 5) at full width and depth, and
+   arctic-480b (128 experts top 2 beside a dense MLP, GQA 7) at full width
+   and depth 2 of 35, random weights from a seed, bf16 compute, fp32 params
+   but bf16 for qwen2.5-32b and arctic-480b, as ``runtime_for`` gives them
+   (their fp32 params do not fit one card), through phase 4b's waves; after
+   each wave ``flash_fwd_wgmma`` must read the model's depth and every
+   other count 0.  internvl2 is served text-only, as the engine serves it,
+   then prefills 4 rows of 1,024 seeded patch embeddings x 0.1 and 1,024
+   tokens and decodes 32 greedy steps; arctic also splits one MoE layer's
+   time, as 4c.  Their launches are counted apart (``serve_4e`` in the
+   kernels line);
 5. reference: smoke-size models on the card in fp32, kernel path against the
    plain path: mamba2 (prefill and one decode step), recurrentgemma with
    5 layers (two unscanned tail layers; 48- and 80-token prompts against a
@@ -149,7 +166,18 @@ Phases (any failure exits non-zero before the last line is printed):
    ``wire_bytes`` equal to the CPU trace's (``GRID_MULTI_SANDBOX_WIRE``);
    prints (d)'s time beside the card's name and power limit.
 
-With ``--profile``, phases 3, 4, 4b and 4c also trace one prefill of their
+After the measured waves, phases 3 to 4e run one more untimed pass of one
+wave each (mamba2's wave 1, recurrentgemma's, gemma2's, mixtral's and each
+4e family's wave A, seamless's prefill, internvl2's prefix prefill) with
+each kernel wrapper swapped for one that holds every call's output to its
+plain version in float64 on the same inputs (``held_calls``): flash
+attention to ``bf16_flash_limit``, SSD to ``bf16_ssd_limit``, RG-LRU to
+``ROUNDED_TOL``.  The calls checked must equal the launches counted and the
+wave's launch count, and a call outside its limit fails the run; a
+``hold`` line a pass prints the calls and the largest error as a share of
+the limit.
+
+With ``--profile``, phases 3, 4, 4b, 4c and 4e also trace one prefill of their
 first measured wave and 8 decode steps under ``torch.profiler`` and print
 where the device time goes and the device's idle share (see
 ``profile_serve``), phase 4d its prefill, 8 decode steps and its forward,
@@ -162,6 +190,7 @@ the last line ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import hashlib
@@ -384,7 +413,7 @@ def check_flash(torch, case, gen):
     bound_ms, bound_by = flash_bound(torch, q, k, mask, dtype)
     library_ms = library_call = None
     if label.startswith(("serve wave A", "gemma2 wave A", "mixtral", "seamless",
-                         "qwen rows")):
+                         "qwen rows", "gemma3 wave A", "stablelm wave A")):
         # One PyTorch call for the same function: SDPA with the boolean
         # causal, window and segment mask.  SDPA has no softcap: where the
         # case has one, SDPA computes the same masks without it.
@@ -619,6 +648,222 @@ def counters():
             "flash_fwd_wgmma": (flash_cuda, "wgmma_launches")}
 
 
+# ---- every kernel call of one pass held to its plain version ----------------
+
+# The float64 scores of one chunk of the flash reference (256 MiB): a whole
+# wave's would not fit beside the model (arctic-480b's 56 heads at wave A:
+# 36 GB).
+HOLD_ELEMENTS = 1 << 25
+# Which calls each launch counter of ``counters()`` counts.
+COUNTED = {"flash_fwd": ("flash_fwd", "flash_fwd_wgmma"),
+           "flash_fwd_wgmma": ("flash_fwd_wgmma",),
+           "ssd_fwd": ("ssd_fwd", "ssd_fwd_wgmma"), "ssd_fwd_wgmma": ("ssd_fwd_wgmma",),
+           "rglru_fwd": ("rglru_fwd",)}
+
+
+def worst_share(torch, got, want, limit, worst):
+    """max(worst, max |got - want| / limit) as a 0-d float64 tensor (no sync)."""
+    return torch.maximum(worst, ((got.double() - want).abs() / limit).max())
+
+
+def flash_share(torch, out, q, k, v, opts) -> float:
+    """The largest |out - want| / limit of one flash-attention call: want is
+    ``attention_reference`` in float64 on the same q, k, v and options, the
+    limit ``bf16_flash_limit`` for a bf16 output (``ROUNDED_TOL`` for fp32);
+    inf where out is not finite.  Computed per batch row and KV head (with
+    its group of q heads), over chunks of q rows whose scores hold at most
+    ``HOLD_ELEMENTS``; the plain result on |v|, which the limit needs, rides
+    along as D more value columns."""
+    from repro_torch.kernels.flash_attention.ref import attention_reference, bf16_flash_limit
+    if not torch.isfinite(out).all():
+        return math.inf
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    rows = max(1, HOLD_ELEMENTS // (group * Sk))
+    qs, ks = opts.get("q_segments"), opts.get("kv_segments")
+    kw = {name: opts.get(name, default) for name, default in (
+        ("causal", True), ("window", None), ("softcap", None), ("scale", None))}
+    worst = torch.zeros((), dtype=torch.float64, device=q.device)
+    for b in range(B):
+        for h in range(Hkv):
+            heads = slice(h * group, (h + 1) * group)
+            vh = v[b:b + 1, :, h:h + 1].double()
+            kh, v2 = k[b:b + 1, :, h:h + 1].double(), torch.cat([vh, vh.abs()], dim=-1)
+            for r0 in range(0, Sq, rows):
+                r = slice(r0, min(Sq, r0 + rows))
+                both = attention_reference(
+                    q[b:b + 1, r, heads].double(), kh, v2,
+                    q_segments=None if qs is None else qs[b:b + 1, r],
+                    kv_segments=None if ks is None else ks[b:b + 1],
+                    q_offset=opts.get("q_offset", 0) + r0, **kw)
+                want = both[..., :D]
+                limit = (bf16_flash_limit(want, both[..., D:]) if out.dtype == torch.bfloat16
+                         else ROUNDED_TOL["float32"][0]
+                         + ROUNDED_TOL["float32"][1] * want.abs())
+                worst = worst_share(torch, out[b:b + 1, r, heads], want, limit, worst)
+    return worst.item()
+
+
+def ssd_share(torch, y, state, x, a, Bm, Cm, s0, chunk: int) -> float:
+    """As :func:`flash_share` for one SSD call (y and the final state):
+    ``_ssd_chunked`` in float64, ``bf16_ssd_limit`` at the kernel's chunk for
+    bf16 (``ROUNDED_TOL`` for fp32)."""
+    from repro_torch.kernels.ssd.kernel import kernel_chunk
+    from repro_torch.kernels.ssd.ops import _ssd_chunked
+    from repro_torch.kernels.ssd.ref import bf16_ssd_limit
+    if not (torch.isfinite(y).all() and torch.isfinite(state).all()):
+        return math.inf
+    f64 = [None if t is None else t.double() for t in (x, a, Bm, Cm, s0)]
+    y_ref, s_ref = _ssd_chunked(*f64, chunk=chunk)
+    if x.dtype == torch.bfloat16:
+        lim_y, lim_s = bf16_ssd_limit(y_ref, x, a, Bm, Cm, s0,
+                                      chunk=kernel_chunk(chunk, x.shape[1]))
+    else:
+        atol, rtol = ROUNDED_TOL["float32"]
+        lim_y, lim_s = atol + rtol * y_ref.abs(), atol + rtol * s_ref.abs()
+    worst = torch.zeros((), dtype=torch.float64, device=x.device)
+    return worst_share(torch, state, s_ref, lim_s,
+                       worst_share(torch, y, y_ref, lim_y, worst)).item()
+
+
+def rglru_share(torch, y, h, x, r, i, lam, h0) -> float:
+    """As :func:`flash_share` for one RG-LRU call (y and the final h):
+    ``_rglru_scan`` in float64, y held to ``ROUNDED_TOL`` of its dtype and
+    the fp32 h to fp32's."""
+    from repro_torch.kernels.rglru.ops import _rglru_scan
+    if not (torch.isfinite(y).all() and torch.isfinite(h).all()):
+        return math.inf
+    y_ref, h_ref = _rglru_scan(*[None if t is None else t.double()
+                                 for t in (x, r, i, lam, h0)])
+    worst = torch.zeros((), dtype=torch.float64, device=x.device)
+    for got, want, dtype in ((y, y_ref, str(y.dtype).split(".")[-1]), (h, h_ref, "float32")):
+        atol, rtol = ROUNDED_TOL[dtype]
+        worst = worst_share(torch, got, want, atol + rtol * want.abs(), worst)
+    return worst.item()
+
+
+@contextlib.contextmanager
+def held_calls(torch):
+    """For the ``with`` block, each kernel wrapper that the models call (the
+    ``*_cuda`` attribute of its ``kernel`` module, which the ops import at
+    each call) is swapped for one that calls it and then holds the call's
+    output to its plain version in float64 on the same inputs.  Yields the
+    list of records, one a call: the kernel, its shapes and options, and
+    ``share``, the largest error as a share of the limit (<= 1 within it).
+    The wrappers are put back on exit.  A wrapper counts its launches on
+    its module's attribute of its name, which is the swapped one in the
+    block: the swapped one starts from the wrapper's counts, and what it
+    counted is added to them on exit."""
+    import importlib
+    from repro_torch.kernels.flash_attention.kernel import WGMMA_HEAD_DIMS
+    from repro_torch.kernels.ssd.kernel import WGMMA_SHAPE
+    mods = {name: importlib.import_module(f"repro_torch.kernels.{name}.kernel")
+            for name in ("flash_attention", "ssd", "rglru")}
+    flash_cuda = mods["flash_attention"].flash_cuda
+    ssd_cuda, rglru_cuda = mods["ssd"].ssd_cuda, mods["rglru"].rglru_cuda
+    records = []
+    bf16 = torch.bfloat16
+
+    def flash(q, k, v, **opts):
+        out = flash_cuda(q, k, v, **opts)
+        D = q.shape[-1]
+        records.append({
+            "kernel": ("flash_fwd_wgmma" if q.dtype == bf16 and D in WGMMA_HEAD_DIMS
+                       else "flash_fwd"),
+            "q": list(q.shape), "kv": list(k.shape), "causal": opts.get("causal", True),
+            "window": opts.get("window"), "softcap": opts.get("softcap"),
+            "q_offset": opts.get("q_offset", 0),
+            "segments": opts.get("q_segments") is not None,
+            "share": flash_share(torch, out, q, k, v, opts)})
+        return out
+
+    def ssd(x, a, Bm, Cm, s0=None, *, chunk=256):
+        y, state = ssd_cuda(x, a, Bm, Cm, s0, chunk=chunk)
+        records.append({
+            "kernel": ("ssd_fwd_wgmma" if x.dtype == bf16 and tuple(x.shape[3:]) + (
+                Bm.shape[-1],) == WGMMA_SHAPE else "ssd_fwd"),
+            "x": list(x.shape), "N": Bm.shape[-1], "chunk": chunk, "s0": s0 is not None,
+            "share": ssd_share(torch, y, state, x, a, Bm, Cm, s0, chunk)})
+        return y, state
+
+    def rglru(x, r, i, lam, h0=None):
+        y, h = rglru_cuda(x, r, i, lam, h0)
+        records.append({"kernel": "rglru_fwd", "x": list(x.shape), "h0": h0 is not None,
+                        "share": rglru_share(torch, y, h, x, r, i, lam, h0)})
+        return y, h
+
+    swaps = ((mods["flash_attention"], "flash_cuda", flash_cuda, flash),
+             (mods["ssd"], "ssd_cuda", ssd_cuda, ssd),
+             (mods["rglru"], "rglru_cuda", rglru_cuda, rglru))
+    start = [{c: getattr(wrapper, c) for c in ("launches", "wgmma_launches")
+              if hasattr(wrapper, c)} for _, _, wrapper, _ in swaps]
+    for (mod, name, _, held), counts in zip(swaps, start):
+        held.__dict__.update(counts)
+        setattr(mod, name, held)
+    try:
+        yield records
+    finally:
+        for (mod, name, wrapper, held), counts in zip(swaps, start):
+            setattr(mod, name, wrapper)
+            for c, n in counts.items():
+                setattr(wrapper, c, getattr(wrapper, c) + getattr(held, c) - n)
+
+
+def hold_calls(torch, run, expect: dict, tag: str) -> dict:
+    """Runs ``run()`` (one pass, untimed) under :func:`held_calls` and fails
+    unless every call lies within its limit and, for each launch counter in
+    ``expect``, the calls checked and the launches counted both equal its
+    value.  Prints and returns, per kernel, the calls checked and the
+    largest share of the limit."""
+    before = {name: getattr(fn, attr, 0) for name, (fn, attr) in counters().items()}
+    t0 = time.perf_counter()
+    with held_calls(torch) as records:
+        run()
+    launched = {name: getattr(fn, attr, 0) - before[name]
+                for name, (fn, attr) in counters().items()}
+    for name, want in expect.items():
+        checked = sum(r["kernel"] in COUNTED[name] for r in records)
+        if checked != want or launched[name] != want:
+            fail(f"{tag}: {checked} {name} calls checked and {launched[name]} launched, "
+                 f"expected {want}")
+    bad = [r for r in records if not r["share"] <= 1.0]
+    if bad:
+        fail(f"{tag}: {len(bad)} of {len(records)} kernel calls lie outside their limit, "
+             f"first {json.dumps(bad[:3])}")
+    summary = {}
+    for r in records:
+        s = summary.setdefault(r["kernel"], {"calls": 0, "max_share_of_limit": 0.0})
+        s["calls"] += 1
+        s["max_share_of_limit"] = max(s["max_share_of_limit"], r["share"])
+    log(f"hold {tag} " + json.dumps({"kernels": summary, "windows": sorted(
+        {str(r["window"]) for r in records if "window" in r}),
+        "seconds": time.perf_counter() - t0}))
+    return summary
+
+
+def hold_wave(torch, model, rows, expect: dict, tag: str) -> dict:
+    """One more prefill of a served wave's rows, untimed, with every kernel
+    call held to its plain version (:func:`hold_calls`), then one decode
+    step: logits finite, of the right shape, the padded vocab at -1e30."""
+    cfg = model.cfg
+    tokens, kw, context_start = wave_inputs(torch, rows)
+    out = {}
+    summary = hold_calls(torch, lambda: out.update(prefill=model.prefill(tokens, **kw)),
+                         expect, tag)
+    logits, cache, pos = out.pop("prefill")
+    step, _ = model.decode_step(cache, logits[:, -1].argmax(-1)[:, None], pos, context_start)
+    for name, t in (("prefill", logits), ("decode", step)):
+        check_logits(torch, cfg, t, (len(rows), 1, cfg.padded_vocab), f"{tag} {name}")
+    return summary
+
+
+def flash_expect(n: int) -> dict:
+    """A pass whose every launch is ``n`` on ``flash_fwd_wgmma``."""
+    return {"ssd_fwd": 0, "ssd_fwd_wgmma": 0, "rglru_fwd": 0, "flash_fwd": n,
+            "flash_fwd_wgmma": n}
+
+
 def serve_waves(torch, model, cold_len: int, wave_lens, expect: dict, tag: str,
                 prompt_gen):
     """A cold-start wave, then the measured waves through
@@ -777,6 +1022,13 @@ FLASH_CASES = [
      0, None, (512, 1024)),
     ("seamless cross", 4, 256, 1024, 16, 16, 64, "bfloat16", False, None, None,
      0, None, (256, 1024)),
+    # phase 4e's wave-A shapes that no case above covers: gemma3-12b's local
+    # layers (window 1024, shorter than three of the four prompts) and
+    # stablelm-1.6b's multi-head attention at head_dim 64, both left-padded.
+    ("gemma3 wave A local", 4, 4500, 4500, 16, 8, 256, "bfloat16", True, 1024, None,
+     0, GEMMA2_WAVE_A, (512, 1024)),
+    ("stablelm wave A", 4, 4500, 4500, 32, 32, 64, "bfloat16", True, None, None,
+     0, GEMMA2_WAVE_A, (512, 1024)),
     # qwen2.5-32b's prefill_32k on the dry-run's 16 "model" ranks: its 40 q
     # heads do not divide 16, so the attention splits each row's 32768
     # queries into 16 chunks of 2048 (B 2: 32 rows over 16 "data" ranks),
@@ -834,11 +1086,11 @@ def serve_gemma2(torch, prompt_gen, profiling: bool) -> dict:
         f"{cfg.n_params()}), built in {time.perf_counter() - t0:.1f} s")
     prompts, launches = serve_waves(
         torch, model, 1024, (GEMMA2_WAVE_A, 1024),
-        {"ssd_fwd": 0, "ssd_fwd_wgmma": 0, "rglru_fwd": 0, "flash_fwd": cfg.n_layers,
-         "flash_fwd_wgmma": cfg.n_layers}, "gemma2", prompt_gen)
+        flash_expect(cfg.n_layers), "gemma2", prompt_gen)
     if profiling:
         profile_serve(torch, model, prompts[0])
     full_width_logits(torch, model, prompts[0], {"attn_impl": "chunked"}, "gemma2")
+    hold_wave(torch, model, prompts[0], flash_expect(cfg.n_layers), "gemma2 wave A")
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -921,12 +1173,12 @@ def serve_mixtral(torch, prompt_gen, profiling: bool) -> dict:
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     prompts, launches = serve_waves(
         torch, model, 1024, (GEMMA2_WAVE_A, 1024),
-        {"ssd_fwd": 0, "ssd_fwd_wgmma": 0, "rglru_fwd": 0, "flash_fwd": cfg.n_layers,
-         "flash_fwd_wgmma": cfg.n_layers}, "mixtral", prompt_gen)
+        flash_expect(cfg.n_layers), "mixtral", prompt_gen)
     moe_breakdown(torch, model, len(GEMMA2_WAVE_A), max(GEMMA2_WAVE_A))
     if profiling:
         profile_serve(torch, model, prompts[0])
     full_width_logits(torch, model, prompts[0], {"attn_impl": "chunked"}, "mixtral")
+    hold_wave(torch, model, prompts[0], flash_expect(cfg.n_layers), "mixtral wave A")
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -936,7 +1188,7 @@ def serve_mixtral(torch, prompt_gen, profiling: bool) -> dict:
 SEAMLESS_BATCH, SEAMLESS_FRAMES, SEAMLESS_PROMPT, SEAMLESS_FORWARD = 4, 1024, 64, 256
 
 
-def check_encdec_logits(torch, cfg, logits, shape, tag: str) -> None:
+def check_logits(torch, cfg, logits, shape, tag: str) -> None:
     if tuple(logits.shape) != shape:
         fail(f"{tag} logits have shape {tuple(logits.shape)}, expected {shape}")
     if not torch.isfinite(logits[..., :cfg.vocab_size]).all():
@@ -996,8 +1248,8 @@ def serve_seamless(torch, profiling: bool) -> dict:
             tok.tolist()
         decode_s = time.perf_counter() - t1
         if n_steps:
-            check_encdec_logits(torch, cfg, logits, (B, 1, cfg.padded_vocab),
-                                f"seamless decode step {n_steps}")
+            check_logits(torch, cfg, logits, (B, 1, cfg.padded_vocab),
+                         f"seamless decode step {n_steps}")
         return first, t1 - t0, decode_s
 
     serve(2)                                     # cold start, and a cold forward
@@ -1007,7 +1259,7 @@ def serve_seamless(torch, profiling: bool) -> dict:
     zero()
     logits, prefill_s, _ = serve(0)
     launches = expect(2 * cfg.n_layers, "prefill")
-    check_encdec_logits(torch, cfg, logits, (B, 1, cfg.padded_vocab), "seamless prefill")
+    check_logits(torch, cfg, logits, (B, 1, cfg.padded_vocab), "seamless prefill")
     _, _, decode_s = serve(steps)
     zero()
     with torch.inference_mode():
@@ -1016,8 +1268,8 @@ def serve_seamless(torch, profiling: bool) -> dict:
         torch.cuda.synchronize()
         forward_s = time.perf_counter() - t0
     fwd_launches = expect(cfg.n_encoder_layers + 2 * cfg.n_layers, "forward")
-    check_encdec_logits(torch, cfg, fwd_logits, (B, SEAMLESS_FORWARD, cfg.padded_vocab),
-                        "seamless forward")
+    check_logits(torch, cfg, fwd_logits, (B, SEAMLESS_FORWARD, cfg.padded_vocab),
+                 "seamless forward")
     log("serve seamless " + json.dumps({
         "batch": B, "frames": SEAMLESS_FRAMES, "prompt_len": SEAMLESS_PROMPT,
         "forward_tokens": SEAMLESS_FORWARD, "prefill_ms": prefill_s * 1e3,
@@ -1040,6 +1292,8 @@ def serve_seamless(torch, profiling: bool) -> dict:
         f"abs diff {(plain_fwd - fwd_logits)[..., :V].abs().max().item()}, greedy tokens "
         f"agree {(plain_fwd.argmax(-1) == fwd_logits.argmax(-1)).float().mean().item()}")
     del plain_logits, plain_fwd, fwd_logits
+    hold_calls(torch, lambda: model.prefill(frames, tokens), flash_expect(2 * cfg.n_layers),
+               "seamless prefill")
     if profiling:
         info = {"batch": B, "frames": SEAMLESS_FRAMES, "prompt_len": SEAMLESS_PROMPT}
 
@@ -1056,6 +1310,93 @@ def serve_seamless(torch, profiling: bool) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return {name: launches[name] + fwd_launches[name] for name in launches}
+
+
+# Phase 4e: (arch, depth or None for every layer, param dtype).  stablelm,
+# internvl2 and gemma3 keep fp32 params, as phases 3-4d do; qwen2.5-32b's and
+# arctic-480b's take ``runtime_for``'s dtype (bf16 above 5e9 parameters), as
+# their fp32 params (131 GB; 110.7 GB for arctic's two layers) do not fit.
+ARCTIC_DEPTH = 2
+SERVE_4E = (("stablelm-1.6b", None, "float32"), ("internvl2-2b", None, "float32"),
+            ("gemma3-12b", None, "float32"), ("qwen2.5-32b", None, "runtime_for"),
+            ("arctic-480b", ARCTIC_DEPTH, "runtime_for"))
+VLM_BATCH, VLM_TEXT, VLM_STEPS = 4, 1024, 32
+
+
+def serve_vision_prefix(torch, model) -> dict:
+    """internvl2's vision prefix, which no engine request carries: one
+    ``prefill`` of 4 rows of 1,024 seeded patch embeddings x 0.1 and 1,024
+    tokens, every kernel call held, then 32 greedy ``decode_step``s; logits
+    finite, of the right shape, the padded vocab at -1e30."""
+    cfg = model.cfg
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    embeds = torch.randn((VLM_BATCH, cfg.frontend_tokens, cfg.d_model), device="cuda",
+                         generator=gen) * 0.1
+    tokens = torch.randint(3, cfg.vocab_size, (VLM_BATCH, VLM_TEXT), device="cuda",
+                           generator=gen)
+    out = {}
+    summary = hold_calls(
+        torch, lambda: out.update(prefill=model.prefill(tokens, frontend_embeds=embeds)),
+        flash_expect(cfg.n_layers), f"{cfg.name} vision prefix")
+    logits, cache, pos = out.pop("prefill")
+    if pos != cfg.frontend_tokens + VLM_TEXT:
+        fail(f"{cfg.name} vision prefix prefill returned length {pos}")
+    shape = (VLM_BATCH, 1, cfg.padded_vocab)
+    check_logits(torch, cfg, logits, shape, f"{cfg.name} vision prefix prefill")
+    t0 = time.perf_counter()
+    for i in range(VLM_STEPS):
+        logits, cache = model.decode_step(cache, logits[:, -1].argmax(-1)[:, None], pos + i)
+        check_logits(torch, cfg, logits, shape, f"{cfg.name} vision prefix decode step {i}")
+    log(f"serve {cfg.name} vision prefix " + json.dumps({
+        "batch": VLM_BATCH, "patch_embeds": cfg.frontend_tokens, "tokens": VLM_TEXT,
+        "decode_steps": VLM_STEPS,
+        "decode_tok_per_s": VLM_BATCH * VLM_STEPS / (time.perf_counter() - t0)}))
+    return summary
+
+
+def serve_family(torch, arch: str, depth, dtype: str, prompt_gen, profiling: bool) -> dict:
+    """One family of phase 4e (see the module docstring); returns its
+    launches by kernel."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch.specs import runtime_for
+    from repro_torch.models import RuntimeConfig, build_model
+    full = get_config(arch)
+    cfg = full if depth is None else dataclasses.replace(full, n_layers=depth)
+    param_dtype = (torch.float32 if dtype == "float32"
+                   else runtime_for(cfg, SHAPES["decode_32k"]).param_dtype)
+    kinds = [cfg.pattern[i % len(cfg.pattern)] for i in range(cfg.n_layers)]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, RuntimeConfig(param_dtype=param_dtype,
+                                           max_cache_len=max(GEMMA2_WAVE_A) + 32),
+                        device="cuda", seed=0)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    cut = ("" if depth is None else
+           f" (depth cut to {depth} of {full.n_layers}: n_params() {full.n_params()}, "
+           f"{full.n_params() * 2 / 1e9:.1f} GB in bf16, more than one card holds)")
+    log(f"model {cfg.name}: {cfg.n_layers} layers{cut} "
+        f"({', '.join(f'{kinds.count(k)} {k}' for k in dict.fromkeys(kinds))}), "
+        f"d_model {cfg.d_model}, {cfg.n_heads} q / {cfg.n_kv_heads} KV heads of "
+        f"{cfg.head_dim}; {n} params in {str(param_dtype).split('.')[-1]} "
+        f"({n * model.embed.element_size() / 1e9:.2f} GB; n_params() {cfg.n_params()}), "
+        f"built in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated (build peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)")
+    expect = flash_expect(cfg.n_layers)
+    prompts, launches = serve_waves(torch, model, 1024, (GEMMA2_WAVE_A, 1024), expect,
+                                    cfg.name, prompt_gen)
+    if cfg.n_experts:
+        moe_breakdown(torch, model, len(GEMMA2_WAVE_A), max(GEMMA2_WAVE_A))
+    if profiling:
+        profile_serve(torch, model, prompts[0])
+    hold_wave(torch, model, prompts[0], expect, f"{cfg.name} wave A")
+    if cfg.frontend == "vision":
+        serve_vision_prefix(torch, model)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def smoke_seamless(torch, steps: int, seed: int) -> None:
@@ -2352,6 +2693,9 @@ def main() -> None:
     if profiling:
         profile_serve(torch, model, prompts[0])
     full_width_logits(torch, model, prompts[-1], {"ssd_impl": "chunked"}, "mamba2")
+    hold_wave(torch, model, prompts[0], {"ssd_fwd": cfg.n_layers, "ssd_fwd_wgmma": cfg.n_layers,
+                                         "rglru_fwd": 0, "flash_fwd": 0, "flash_fwd_wgmma": 0},
+              "mamba2 wave 1")
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -2378,6 +2722,9 @@ def main() -> None:
         profile_serve(torch, model, prompts[0])
     full_width_logits(torch, model, prompts[0],
                       {"attn_impl": "chunked", "rglru_impl": "scan"}, "recurrentgemma")
+    hold_wave(torch, model, prompts[0],
+              {"ssd_fwd": 0, "ssd_fwd_wgmma": 0, "rglru_fwd": n_rec, "flash_fwd": n_local,
+               "flash_fwd_wgmma": n_local}, "recurrentgemma wave A")
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -2398,6 +2745,13 @@ def main() -> None:
         launches[name] += n
 
     log(f"phase 4d done at {time.perf_counter() - t_start:.1f} s")
+    # 4e. stablelm, internvl2, gemma3, qwen2.5 and arctic (depth 2) ---------------
+    serve_4e = {name: 0 for name in launches}
+    for arch, depth, dtype in SERVE_4E:
+        for name, n in serve_family(torch, arch, depth, dtype, prompt_gen,
+                                    profiling).items():
+            serve_4e[name] += n
+        log(f"phase 4e {arch} done at {time.perf_counter() - t_start:.1f} s")
     # 5. reference: smoke-size models, kernel path vs plain path in fp32 ---------
     smoke_reference(torch, get_smoke_config("mamba2-1.3b"), {"ssd_impl": "chunked"},
                     (48,), 1, seed=3)
@@ -2432,12 +2786,13 @@ def main() -> None:
     # The main path's largest call of each kernel (flash_fwd and ssd_fwd,
     # off the main path, at the serving shape in fp32).  flash_fwd's and
     # ssd_fwd's own launches are those that did not take the tensor-core
-    # route.
+    # route; ``launches`` counts phases 3-4d, ``serve_4e`` phase 4e.
     main_case = {"ssd_fwd_wgmma": "serve wave 1", "ssd_fwd": "serve wave 1 fp32",
                  "flash_fwd_wgmma": "gemma2 wave A global",
                  "flash_fwd": "serve wave A fp32", "rglru_fwd": "serve wave A"}
-    launches["flash_fwd"] -= launches["flash_fwd_wgmma"]
-    launches["ssd_fwd"] -= launches["ssd_fwd_wgmma"]
+    for counts in (launches, serve_4e):
+        counts["flash_fwd"] -= counts["flash_fwd_wgmma"]
+        counts["ssd_fwd"] -= counts["ssd_fwd_wgmma"]
     meta = {
         "ssd_fwd_wgmma": ("src/repro_torch/kernels/ssd/csrc/ssd_fwd_wgmma.cu",
                           "src/repro/kernels/ssd/kernel.py:91"),
@@ -2458,6 +2813,7 @@ def main() -> None:
         entries.append({
             "name": name, "route": "cuda", "source": meta[name][0],
             "replaces": meta[name][1], "launches": launches[name],
+            "serve_4e": serve_4e[name],
             "max_abs_err": max(errs),
             "ms": main_path["ms"], "call_ms": main_path["call_ms"],
             "plain_ms": main_path["plain_ms"],

@@ -18,6 +18,7 @@ splits its batch over the FSDP mesh dims, and keeps them where it does not
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 from typing import Any, NamedTuple, Optional, Tuple, Union
 
@@ -99,10 +100,18 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
     return device
 
 
+# A parameter of more elements is drawn a slice of its first dim at a time,
+# so that the draw's fp32 transients (the draw, and torch's trunc_normal_'s
+# own temporaries of its size) stay near 4 GiB: arctic-480b's bf16 expert
+# stack (4.46e9 elements, 8.9 GB) drawn whole needs several 17.8 GB of them.
+DRAW_ELEMENTS = 1 << 30
+
+
 class Initializer:
     """Deterministic param init (truncated normal on [-2, 2] x scale).  On
     the ``meta`` device it draws nothing: the parameters are shapes and
-    dtypes only."""
+    dtypes only.  A parameter over ``DRAW_ELEMENTS`` is drawn in slices of
+    its first dim, in order."""
 
     def __init__(self, seed: int, device: Union[str, torch.device]):
         self.device = resolve_device(device)
@@ -112,9 +121,20 @@ class Initializer:
     def normal(self, shape, scale: float, dtype: torch.dtype) -> nn.Parameter:
         if self.generator is None:
             return nn.Parameter(torch.empty(shape, dtype=dtype, device=self.device))
+        shape = tuple(shape)
+        per_row = math.prod(shape[1:])
+        if per_row * shape[0] <= DRAW_ELEMENTS:
+            return nn.Parameter(self._draw(shape, scale).to(dtype))
+        out = torch.empty(shape, dtype=dtype, device=self.device)
+        step = max(1, DRAW_ELEMENTS // per_row)
+        for r0 in range(0, shape[0], step):
+            out[r0:r0 + step] = self._draw((min(step, shape[0] - r0),) + shape[1:], scale)
+        return nn.Parameter(out)
+
+    def _draw(self, shape, scale: float) -> torch.Tensor:
         t = torch.empty(shape, dtype=torch.float32, device=self.device)
         nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=self.generator)
-        return nn.Parameter((t * scale).to(dtype))
+        return t.mul_(scale)
 
     def zeros(self, shape, dtype: torch.dtype) -> nn.Parameter:
         return nn.Parameter(torch.zeros(shape, dtype=dtype, device=self.device))

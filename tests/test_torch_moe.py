@@ -292,12 +292,12 @@ class _RecordPrefill:
         return out
 
 
-def test_padded_wave_matches_the_jax_engine():
+def _padded_wave_against_jax(arch):
     """Prompts of 7, 20 and 13 tokens: one wave padded to S = 20, T = 60
     tokens in groups of 15 (the largest divisor of 60 at most 16), which 20
     does not divide, so a group spans two rows and the pads take capacity,
     in both engines alike."""
-    jmodel, jparams, tmodel = _pair("mixtral-8x22b")
+    jmodel, jparams, tmodel = _pair(arch)
     G, g, C = moe.moe_groups(60, tmodel.cfg, tmodel.rt)
     assert (G, g) == (4, 15) and 20 % g
     rng = np.random.default_rng(9)
@@ -314,3 +314,13 @@ def test_padded_wave_matches_the_jax_engine():
     [jl], [tl] = jrec.logits, trec.logits
     np.testing.assert_allclose(tl, jl, **TOL["float32"])
     assert teng.wave_stats[0]["prompt_lens"] == [7, 20, 13]
+
+
+def test_padded_wave_matches_the_jax_engine():
+    _padded_wave_against_jax("mixtral-8x22b")
+
+
+def test_arctic_padded_wave_matches_the_jax_engine():
+    """The same wave through arctic-480b: GQA 2 on the smoke config, and the
+    dense residual MLP beside the capacity-dropping experts."""
+    _padded_wave_against_jax("arctic-480b")

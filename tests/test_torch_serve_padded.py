@@ -8,10 +8,12 @@ be equal token for token (fp32 compute at smoke size, where RoPE's shift
 equivariance holds to the last greedy token), and each row's logits, at
 prefill and at every decode step, must match those of its prompt decoded
 alone within 3e-4: gemma2's smoke model gives the same greedy token over and
-over, so its tokens alone would not see a pad attended.  For gemma2 the prompts
-straddle its local window (32), and one passes the 128-slot ring of its
-local layers, so the ring's shifted write and the window and pad masks all
-run on one wave.  Stateful families keep equal-length waves.
+over, so its tokens alone would not see a pad attended.  For gemma2 and
+gemma3 the prompts straddle their local window (32), and one passes the
+128-slot ring of their local layers, so the ring's shifted write and the
+window and pad masks all run on one wave; qwen2.5 adds QKV bias and
+internvl2 is served text-only, as both engines serve it.  Stateful families
+keep equal-length waves.
 """
 
 import dataclasses
@@ -57,6 +59,21 @@ def stablelm():
 @pytest.fixture(scope="module")
 def gemma2():
     return _pair("gemma2-9b")
+
+
+@pytest.fixture(scope="module")
+def qwen25():
+    return _pair("qwen2.5-32b")
+
+
+@pytest.fixture(scope="module")
+def internvl2():
+    return _pair("internvl2-2b")
+
+
+@pytest.fixture(scope="module")
+def gemma3():
+    return _pair("gemma3-12b")
 
 
 def _serve_both(models, prompts, max_batch, **submit_kw):
@@ -113,6 +130,10 @@ def _prompts(seed, lengths, vocab=512):
     ("gemma2-9b", (5, 11, 16)),
     ("gemma2-9b", (20, 33, 45)),             # straddling the local window (32)
     ("gemma2-9b", (31, 150, 97)),            # the longest passes the 128-slot ring
+    ("qwen2.5-32b", (5, 11, 16)),            # QKV bias, GQA 2
+    ("internvl2-2b", (5, 11, 16)),           # text only, as both engines serve it
+    ("gemma3-12b", (20, 33, 45)),            # 5:1 local/global, window 32
+    ("gemma3-12b", (31, 150, 97)),
 ])
 def test_unequal_prompts_match_jax_and_decoding_alone(arch, lengths, request):
     jmodel, jparams, tmodel = request.getfixturevalue(
