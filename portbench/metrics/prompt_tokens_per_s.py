@@ -1,0 +1,6 @@
+"""Prompt tokens (pads not counted) of every request finished in the
+window, over the window's whole length; host clock."""
+
+
+def read(rec):
+    return sum(len(r["prompt"]) for r in rec["requests"]) / rec["window_s"]
