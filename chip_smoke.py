@@ -564,11 +564,12 @@ def wave_inputs(torch, rows):
 def profile_table(torch, prof, window_us: float, top: int = 10):
     """(device-busy ms, idle share, launches, top kernels) of a profiled
     window: the CUDA kernels' durations summed by name (one stream, so they
-    do not overlap)."""
+    do not overlap).  A ``record_function`` range (the program's spans) is
+    drawn on the device's timeline too, as a user annotation: not a kernel."""
     from torch.autograd import DeviceType
     by_kernel = {}
     for evt in prof.events():
-        if evt.device_type == DeviceType.CUDA:
+        if evt.device_type == DeviceType.CUDA and not evt.is_user_annotation:
             n, us = by_kernel.get(evt.name, (0, 0.0))
             by_kernel[evt.name] = (n + 1, us + evt.time_range.elapsed_us())
     if not by_kernel:

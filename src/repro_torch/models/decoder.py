@@ -55,6 +55,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..configs.base import ModelConfig
 from ..kernels._local import block_index, is_dtensor, last_row
+from ..spans import span
 from .attention import attn_apply, attn_decode, attn_init, init_kv_cache
 from .common import (Initializer, Kept, RuntimeConfig, linear, mlp_apply, mlp_init,
                      norm_apply, norm_init, on_use, resolve_device, softcap)
@@ -206,17 +207,18 @@ class DecoderLM(nn.Module):
             mix = norm_apply(p["post_norm1"], rt.hidden(mix), cfg.norm)
         x = rt.residual(x, mix)
         h = rt.hidden(norm_apply(p["norm2"], x, cfg.norm))
-        if cfg.n_experts:
-            if decode:
-                y = moe_decode(p["moe"], h, cfg, self.rt)
+        with span("model.moe" if cfg.n_experts else "model.mlp", timed=True):
+            if cfg.n_experts:
+                if decode:
+                    y = moe_decode(p["moe"], h, cfg, self.rt)
+                else:
+                    moe_fn = (moe_apply_shardmap if self.rt.moe_impl == "shard_map"
+                              else moe_apply)
+                    y, _aux = moe_fn(p["moe"], h, cfg, self.rt)
+                if cfg.dense_residual:
+                    y = y + mlp_apply(p["mlp"], h, cfg.act)
             else:
-                moe_fn = (moe_apply_shardmap if self.rt.moe_impl == "shard_map"
-                          else moe_apply)
-                y, _aux = moe_fn(p["moe"], h, cfg, self.rt)
-            if cfg.dense_residual:
-                y = y + mlp_apply(p["mlp"], h, cfg.act)
-        else:
-            y = mlp_apply(p["mlp"], h, cfg.act)
+                y = mlp_apply(p["mlp"], h, cfg.act)
         if cfg.post_norms:
             y = norm_apply(p["post_norm2"], rt.hidden(y), cfg.norm)
         return rt.residual(x, y)
@@ -296,15 +298,16 @@ class DecoderLM(nn.Module):
         ``segments`` (B, S) mask attention across packed or padded sequences
         (the serving engine marks left pads 0 and content 1).
         """
-        x = self._embed(tokens, frontend_embeds)
-        positions = self._positions(x, positions)
-        cache = self.init_cache(x.shape[0])
-        filled = []
-        for kind, p, layer_cache in zip(self.kinds, self.blocks, cache):
-            x, state = self._prefill_block(kind, p, x, layer_cache, positions,
-                                           segments)
-            filled.append(state)
-        return self._logits(last_row(x)), filled, x.shape[1]
+        with span("model.step", timed=True):
+            x = self._embed(tokens, frontend_embeds)
+            positions = self._positions(x, positions)
+            cache = self.init_cache(x.shape[0])
+            filled = []
+            for kind, p, layer_cache in zip(self.kinds, self.blocks, cache):
+                x, state = self._prefill_block(kind, p, x, layer_cache, positions,
+                                               segments)
+                filled.append(state)
+            return self._logits(last_row(x)), filled, x.shape[1]
 
     def _prefill_block(self, kind: str, p, x, cache, positions, segments=None):
         cfg, rt = self.cfg, self.rt
@@ -318,11 +321,12 @@ class DecoderLM(nn.Module):
             mix, state = rec_apply(p["rec"], h, cfg, rt, return_state=True)
             state["conv"] = state["conv"].to(cache["conv"].dtype)
         else:
-            mix, (k, v) = attn_apply(
-                p["attn"], h, cfg, rt, positions=positions, causal=True,
-                window=_block_window(kind, cfg), segments=segments,
-                return_kv=True)
-            state = _write_ring(cache, k, v)
+            with span("model.attn", timed=True):
+                mix, (k, v) = attn_apply(
+                    p["attn"], h, cfg, rt, positions=positions, causal=True,
+                    window=_block_window(kind, cfg), segments=segments,
+                    return_kv=True)
+                state = _write_ring(cache, k, v)
         return rt.hidden(self._mlp_sublayer(p, x, mix)), state
 
     @torch.inference_mode()
@@ -334,13 +338,14 @@ class DecoderLM(nn.Module):
 
         Returns (logits (B, 1, V_pad), new cache).
         """
-        x = self._embed(token)
-        new_cache = []
-        for kind, p, layer_cache in zip(self.kinds, self.blocks, cache):
-            x, state = self._decode_block(kind, p, x, layer_cache, pos,
-                                          context_start)
-            new_cache.append(state)
-        return self._logits(x), new_cache
+        with span("model.step", timed=True):
+            x = self._embed(token)
+            new_cache = []
+            for kind, p, layer_cache in zip(self.kinds, self.blocks, cache):
+                x, state = self._decode_block(kind, p, x, layer_cache, pos,
+                                              context_start)
+                new_cache.append(state)
+            return self._logits(x), new_cache
 
     def _decode_block(self, kind: str, p, x_t, cache, pos, context_start=None):
         cfg, rt = self.cfg, self.rt
@@ -352,9 +357,10 @@ class DecoderLM(nn.Module):
         if kind == "rec":
             mix, state = rec_decode(p["rec"], h, cache, cfg, rt)
         else:
-            mix, state = attn_decode(p["attn"], h, cache, pos, cfg, rt,
-                                     window=_block_window(kind, cfg),
-                                     context_start=context_start)
+            with span("model.attn", timed=True):
+                mix, state = attn_decode(p["attn"], h, cache, pos, cfg, rt,
+                                         window=_block_window(kind, cfg),
+                                         context_start=context_start)
         return rt.hidden(self._mlp_sublayer(p, x_t, mix, decode=True)), state
 
 

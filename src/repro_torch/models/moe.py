@@ -44,6 +44,7 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from ..kernels._local import block_index, is_dtensor, per_shard, rows_split, shard_layout
+from ..spans import count
 from .common import Initializer, Kept, RuntimeConfig, gather, linear, weight
 
 __all__ = ["moe_init", "moe_apply", "moe_apply_shardmap", "moe_decode",
@@ -165,10 +166,15 @@ def moe_apply(p, x: torch.Tensor, cfg: ModelConfig, rt: RuntimeConfig
 def _dispatch_groups(p, xg: torch.Tensor, cfg: ModelConfig, C: int):
     """Route the token groups ``xg`` (G, g, D) and dispatch them: the
     experts' slots (G, E, C, D), the combine weights (G, g, E, C) and the
-    aux loss of these groups."""
+    aux loss of these groups.  Under the profiler it counts the slots
+    (``moe.slots``) and the token-expert pairs kept in them (``moe.kept``)."""
     E = cfg.n_experts
     gate, idx, probs = _route(p, xg, cfg)                      # (G, g, K)
     dispatch, combine = _dispatch_combine(gate, idx, E, C)
+    count("moe.slots", xg.shape[0] * E * C)
+    # a float32 sum of ones is exact below 2**24; sum(dtype=int64) would
+    # first copy the whole one-hot tensor to int64
+    count("moe.kept", lambda: dispatch.sum().long())
     xd = torch.einsum("gtec,gtd->gecd", dispatch.to(xg.dtype), xg)   # (G, E, C, D)
     return xd, combine, _aux_loss(probs, idx, E)
 

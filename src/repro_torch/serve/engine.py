@@ -20,10 +20,23 @@ the engine refuses it when it is built.
 Everything runs under ``torch.inference_mode()`` on the model's device.
 Greedy decoding takes ``argmax`` (the first index on ties, as JAX does);
 temperature sampling draws from the engine's own ``torch.Generator``.
-``wave_stats`` keeps, per wave, the batch, the padded prompt length, each
-row's prompt length, the time to the first sampled token (prefill), and the
-decode time, steps and the tokens those steps gave to requests still
-running.
+``wave_stats`` keeps, per wave, on the host's ``perf_counter`` clock: the
+batch, the padded prompt length, each row's prompt length and request id
+(``prompt_lens``, ``req_ids``), each row's wait in the queue from its
+submission to the wave's prefill (``queue_s``), the time to the first
+sampled token (``prefill_s``), and the decode time, steps and the tokens
+those steps gave to requests still running, with the part of the decode
+time spent waiting for each step's tokens (``decode_wait_s``).  Only a wave
+served under ``torch.profiler.profile`` also gets the device seconds of the
+model's timed spans (:mod:`repro_torch.spans`), ``prefill_device_s`` and
+``decode_device_s`` (``model.step``, ``model.attn`` and ``model.moe`` or
+``model.mlp``), and the MoE capacity counters of its prefill,
+``moe_slots`` (expert slots computed) and ``moe_kept`` (routed token-expert
+pairs the dispatch kept).  Its host spans are ``engine.wave``,
+``engine.prefill`` and, per step, ``engine.decode_step`` holding
+``engine.decode.rows`` (the rows' bookkeeping), ``engine.decode.launch``
+(the model's step and the sampling) and ``engine.decode.wait`` (reading
+the tokens).
 """
 
 from __future__ import annotations
@@ -35,6 +48,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+
+from .. import spans
 
 __all__ = ["Request", "ServeEngine"]
 
@@ -50,8 +65,7 @@ class Request:
     output: List[int] = field(default_factory=list)
     done: bool = False
     wave: int = -1
-    enqueued_at: float = 0.0
-    finished_at: float = 0.0
+    enqueued_at: float = 0.0           # time.perf_counter() at submission
 
 
 class ServeEngine:
@@ -82,7 +96,7 @@ class ServeEngine:
         req = Request(next(self._ids), np.asarray(prompt, np.int32),
                       max_new_tokens=max_new_tokens, eos_id=eos_id,
                       temperature=temperature)
-        req.enqueued_at = time.time()
+        req.enqueued_at = time.perf_counter()
         self._queue.append(req)
         return req.req_id
 
@@ -124,6 +138,15 @@ class ServeEngine:
 
     def _run_wave(self) -> None:
         wave = self._take_wave()
+        with spans.recording(self.device) as rec, spans.span("engine.wave"):
+            stats = self._serve(wave, rec)
+            stats.update(rec.totals())
+        self.wave_stats.append(stats)
+        self._waves += 1
+
+    def _serve(self, wave: List[Request], rec: spans.Recorder) -> Dict:
+        """Prefill ``wave`` and decode it to its end; its ``wave_stats``
+        entry, but for what ``rec`` holds."""
         B = len(wave)
         lens = [len(r.prompt) for r in wave]
         S = max(lens)
@@ -137,47 +160,56 @@ class ServeEngine:
         # it would from 0, and decode uses the shared position S + step.
         positions = torch.arange(S, dtype=torch.int32, device=self.device)
         t0 = time.perf_counter()
-        logits, cache, _ = self.model.prefill(
-            torch.as_tensor(tokens, device=self.device),
-            positions=positions.expand(B, S),
-            segments=torch.as_tensor(segments, device=self.device))
-        context_start = torch.as_tensor([S - n for n in lens], dtype=torch.int32,
-                                        device=self.device)
-        max_new = max(r.max_new_tokens for r in wave)
-        tok = self._sample(logits[:, -1, :], wave)
-        host_tok = tok[:, 0].tolist()                   # waits for the device
-        t1 = time.perf_counter()
-        active = np.ones((B,), bool)
-        n_steps = 0
-        for step in range(max_new):
-            for i, r in enumerate(wave):
-                if not active[i]:
-                    continue
-                t = host_tok[i]
-                r.output.append(t)
-                if (r.eos_id is not None and t == r.eos_id) or \
-                        len(r.output) >= r.max_new_tokens:
-                    active[i] = False
-                    r.done = True
-                    r.finished_at = time.time()
-                    r.wave = self._waves
-            if not active.any():
-                break
-            logits, cache = self.model.decode_step(cache, tok, S + step,
-                                                   context_start)
+        with spans.span("engine.prefill"):
+            logits, cache, _ = self.model.prefill(
+                torch.as_tensor(tokens, device=self.device),
+                positions=positions.expand(B, S),
+                segments=torch.as_tensor(segments, device=self.device))
+            context_start = torch.as_tensor([S - n for n in lens], dtype=torch.int32,
+                                            device=self.device)
             tok = self._sample(logits[:, -1, :], wave)
-            host_tok = tok[:, 0].tolist()
-            n_steps += 1
+            host_tok = tok[:, 0].tolist()               # waits for the device
+        t1 = time.perf_counter()
+        rec.phase = "decode"
+        max_new = max(r.max_new_tokens for r in wave)
+        active = np.ones((B,), bool)
+        n_steps, wait_s = 0, 0.0
+        for step in range(max_new):
+            with spans.span("engine.decode_step"):
+                with spans.span("engine.decode.rows"):
+                    for i, r in enumerate(wave):
+                        if not active[i]:
+                            continue
+                        t = host_tok[i]
+                        r.output.append(t)
+                        if (r.eos_id is not None and t == r.eos_id) or \
+                                len(r.output) >= r.max_new_tokens:
+                            active[i] = False
+                            r.done = True
+                            r.wave = self._waves
+                if not active.any():
+                    break
+                finished = rec.marked()         # the tokens read last waited for them
+                with spans.span("engine.decode.launch"):
+                    logits, cache = self.model.decode_step(cache, tok, S + step,
+                                                           context_start)
+                    tok = self._sample(logits[:, -1, :], wave)
+                rec.read(finished)              # while the device runs this step
+                with spans.span("engine.decode.wait"):
+                    t_wait = time.perf_counter()
+                    host_tok = tok[:, 0].tolist()
+                    wait_s += time.perf_counter() - t_wait
+                n_steps += 1
+        decode_s = time.perf_counter() - t1
         for r in wave:
-            if not r.done:
-                r.done = True
-                r.finished_at = time.time()
+            r.done = True
             self._done[r.req_id] = r
-        self.wave_stats.append({
-            "batch": B, "prompt_len": S, "prompt_lens": lens, "prefill_s": t1 - t0,
-            "decode_s": time.perf_counter() - t1, "decode_steps": n_steps,
-            "decode_tokens": sum(len(r.output) for r in wave) - B})
-        self._waves += 1
+        return {
+            "batch": B, "prompt_len": S, "prompt_lens": lens,
+            "req_ids": [r.req_id for r in wave],
+            "queue_s": [t0 - r.enqueued_at for r in wave], "prefill_s": t1 - t0,
+            "decode_s": decode_s, "decode_steps": n_steps, "decode_wait_s": wait_s,
+            "decode_tokens": sum(len(r.output) for r in wave) - B}
 
     def _sample(self, logits: torch.Tensor, wave) -> torch.Tensor:
         """(B, V) logits -> (B, 1) int32 tokens on the device."""
