@@ -2254,9 +2254,9 @@ GRID_SANDBOX_WIRE = {
     ("mamba2-1.3b", "long_500k"): 1321627.5,
     ("mamba2-1.3b", "prefill_32k"): 23628684480.0,
     ("mamba2-1.3b", "train_4k"): 69127776045.0,
-    ("mixtral-8x22b", "decode_32k"): 1294034400.0,
+    ("mixtral-8x22b", "decode_32k"): 16582272480.0,
     ("mixtral-8x22b", "long_500k"): 86634127.5,
-    ("mixtral-8x22b", "prefill_32k"): 122093268480.0,
+    ("mixtral-8x22b", "prefill_32k"): 139212910080.0,
     ("qwen2.5-32b", "decode_32k"): 5197955040.0,
     ("qwen2.5-32b", "prefill_32k"): 82742736000.0,
     ("qwen2.5-32b", "train_4k"): 385429908540.0,
@@ -2334,9 +2334,9 @@ GRID_MULTI_SANDBOX_WIRE = {
     ("mamba2-1.3b", "long_500k"): 1321627.5,
     ("mamba2-1.3b", "prefill_32k"): 12756156000.0,
     ("mamba2-1.3b", "train_4k"): 35075802937.0,
-    ("mixtral-8x22b", "decode_32k"): 935293680.0,
+    ("mixtral-8x22b", "decode_32k"): 16223531760.0,
     ("mixtral-8x22b", "long_500k"): 86634127.5,
-    ("mixtral-8x22b", "prefill_32k"): 128762115840.0,
+    ("mixtral-8x22b", "prefill_32k"): 145881757440.0,
     ("qwen2.5-32b", "decode_32k"): 2598977520.0,
     ("qwen2.5-32b", "prefill_32k"): 74374785600.0,
     ("qwen2.5-32b", "train_4k"): 440795061297.5,

@@ -325,12 +325,19 @@ def run_cell_roofline(arch: str, shape_name: str, mesh, rules=None,
     # loops from cost_analysis; here it only matches the reference's terms).
     rt_o.setdefault("attn_block_q", shape.seq_len)
     rt_o.setdefault("attn_block_k", shape.seq_len)
+    # runtime_for picks the parameter dtype by parameter count, and one
+    # superblock of mixtral-8x22b falls under its threshold where two do
+    # not: the points would differ by fp32 weights, their casts at each step
+    # and their gathers as well as by a superblock.  Both then take the full
+    # model's dtype.
+    subs = [_reduced_cfg(cfg, n_sb) for n_sb in (1, 2)]
+    if len({runtime_for(sub, shape).param_dtype for sub in subs}) > 1:
+        rt_o.setdefault("param_dtype", runtime_for(cfg, shape).param_dtype)
     k = len(cfg.pattern)
     reps = cfg.n_layers / k if not cfg.is_encoder_decoder else cfg.n_layers
     try:
         points = []
-        for n_sb in (1, 2):
-            sub = _reduced_cfg(cfg, n_sb)
+        for sub in subs:
             lowered, _ = _build(sub, shape, mesh, rules, rt_o, {"microbatches": 1})
             t0 = time.time()
             compiled = lowered.compile()

@@ -11,8 +11,10 @@ reference's one-hot einsums.  Tokens over capacity are dropped for that
 expert; the router runs in fp32.  So under drops a row's output depends on
 the other rows of its batch (a group can span two rows).
 
-Decode: all experts are computed densely for the new token and combined with
-the top-k gate weights; nothing is dropped, so prefill and decode agree with
+Decode: all experts are computed densely for the new token, as products
+batched over the experts on the stacks as stored (``_expert_in``,
+``_combine``), and combined with the top-k gate weights; nothing is
+dropped, so prefill and decode agree with
 ``forward`` only where no token drops (``capacity_factor = n_experts``).
 
 ``moe_apply_shardmap`` is expert parallelism with explicit collectives on
@@ -484,22 +486,34 @@ def moe_decode(p, x: torch.Tensor, cfg: ModelConfig, rt: RuntimeConfig
         return _moe_per_shard(lambda q, y: moe_decode(q, y, cfg, rt), p, x, cfg, False)
     gate, idx, _ = _route(p, x, cfg)                           # (B, 1, K)
     cd = x.dtype
-    h = torch.einsum("btd,edf->btef", x, p["wi"].to(cd))
-    g = torch.einsum("btd,edf->btef", x, p["wg"].to(cd))
+    h, g = _expert_in(x, p["wi"].to(cd), p["wg"].to(cd))
     return _combine(h * F.silu(g), p["wo"].to(cd), gate, idx, cfg)
 
 
+def _expert_in(x, wi, wg):
+    """Every expert's h and g (E, N, F) on the N token rows of ``x`` (...,
+    D): products batched over the experts, on the stacks ``wi``, ``wg`` (E,
+    D, F) as they lie, the rows broadcast over E.  (``einsum("btd,edf->
+    btef")`` shares no batch dim with a stack, so it multiplies x by a (D,
+    E*F) copy of each stack: two stacks' copies a call.)"""
+    xe = x.reshape(1, -1, x.shape[-1]).expand(wi.shape[0], -1, -1)
+    return torch.bmm(xe, wi), torch.bmm(xe, wg)
+
+
 def _combine(a, wo, gate, idx, cfg: ModelConfig, e0: int = 0):
-    """The top-k gates' sum of the experts' outputs ``a`` @ ``wo``; ``a``
-    and ``wo`` may hold the experts from ``e0`` on only (a rank's share of
-    them: the result is then its partial sum)."""
-    B, S, E = a.shape[0], a.shape[1], cfg.n_experts
-    ye = torch.einsum("btef,efd->bted", a, wo)                 # (B,1,E,D)
-    w = torch.zeros((B, S, E), dtype=torch.float32, device=a.device)
+    """The top-k gates' sum of the experts' outputs ``a`` @ ``wo``, (...,
+    D) for the gates' (..., K); ``a`` (E, N, F) and ``wo`` (E, F, D) may
+    hold the experts from ``e0`` on only (a rank's share of them: the
+    result is then its partial sum)."""
+    E, lead = cfg.n_experts, gate.shape[:-1]
+    ye = torch.bmm(a, wo)                                      # (E, N, D)
+    gate, idx = gate.reshape(-1, gate.shape[-1]), idx.reshape(-1, idx.shape[-1])
+    w = torch.zeros((gate.shape[0], E), dtype=torch.float32, device=a.device)
     for k_i in range(cfg.experts_per_token):
-        w = w + F.one_hot(idx[..., k_i], E).float() * gate[..., k_i][..., None]
-    w = w[..., e0:e0 + a.shape[2]]
-    return torch.einsum("bte,bted->btd", w.to(a.dtype), ye)
+        w = w + F.one_hot(idx[:, k_i], E).float() * gate[:, k_i][:, None]
+    w = w[:, e0:e0 + a.shape[0]]
+    y = torch.einsum("ne,end->nd", w.to(a.dtype), ye)
+    return y.reshape(*lead, ye.shape[-1])
 
 
 def _moe_decode_ep(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -526,8 +540,7 @@ def _moe_decode_ep(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
     def local(x, logits, wi, wg, wo):
         gate, idx, _ = _top_k(logits, cfg)
-        h = torch.einsum("btd,edf->btef", x, wi.to(cd))
-        g = torch.einsum("btd,edf->btef", x, wg.to(cd))
+        h, g = _expert_in(x, wi.to(cd), wg.to(cd))
         return _combine(h * F.silu(g), wo.to(cd), gate, idx, cfg, index * wi.shape[0])
 
     out_pl = [Partial() if i in ep or wi.placements[i].is_shard(2) else pl
@@ -544,7 +557,7 @@ def _moe_decode_kept(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """:func:`moe_decode` whose expert stacks kept their FSDP shard of
     d_model (``on_use`` at one row): each rank contracts its slice of x's
     d_model (x split there, the one-row residual stream) into partial sums
-    of h and g, all-reduced at (B, 1, E, d_ff's tensor-parallel shard), and
+    of h and g, all-reduced at (E, B, d_ff's tensor-parallel shard), and
     gives its d_model slice of the gated sum of the experts' outputs: the
     output is split on d_model there and a partial sum over d_ff's split.
     The router's logits come whole (``linear`` of a kept weight)."""
@@ -567,10 +580,9 @@ def _moe_decode_kept(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         return [d_out if pl.is_shard(d_dim) else f_out if pl.is_shard() else Replicate()
                 for pl in w.placements]
 
-    hg_pl = split(wi, 1, Partial(), Shard(3))
+    hg_pl = split(wi, 1, Partial(), Shard(2))
     h, g = local_map(
-        lambda x, wi, wg: (torch.einsum("btd,edf->btef", x, wi.to(cd)),
-                           torch.einsum("btd,edf->btef", x, wg.to(cd))),
+        lambda x, wi, wg: _expert_in(x, wi.to(cd), wg.to(cd)),
         out_placements=(hg_pl, hg_pl), device_mesh=mesh,
         in_placements=(list(x.placements), list(wi.placements), list(wg.placements)),
         redistribute_inputs=True)(x, wi, wg)

@@ -25,6 +25,8 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
+from torch.utils._pytree import tree_leaves  # noqa: E402
 
 from repro.configs import get_smoke_config as jax_smoke_config  # noqa: E402
 from repro.models import RuntimeConfig as JaxRuntimeConfig  # noqa: E402
@@ -120,6 +122,38 @@ def test_moe_decode_matches_jax(arch, dtype):
     ty = moe.moe_decode(tp, tx, cfg, RuntimeConfig())
     assert ty.dtype == tx.dtype
     np.testing.assert_allclose(_np(ty), np.asarray(jy, np.float32), **TOL[dtype])
+
+
+class _OutputSizes(TorchDispatchMode):
+    """Each aten op's name and the element count of every tensor it returns."""
+
+    def __init__(self):
+        super().__init__()
+        self.sizes = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        self.sizes += [(str(func), t.numel()) for t in tree_leaves(out)
+                       if isinstance(t, torch.Tensor)]
+        return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_moe_decode_runs_on_the_stacks_as_stored(arch, dtype):
+    """The expert products run on wi, wg (E, D, F) and wo (E, F, D) as they
+    lie, stacks held in the compute dtype: no op returns as many elements as
+    one stack, as the (D, E * F) copy of wi and of wg does that
+    ``einsum("btd,edf->btef")`` lays out for one matrix product."""
+    cfg, _, tp = _layer(arch, 3)
+    cd = getattr(torch, dtype)
+    tp = {k: v if k == "router" else v.to(cd) for k, v in tp.items()}
+    _, tx = _x(cfg, (4, 1), 4, dtype)
+    stack = cfg.n_experts * cfg.d_model * cfg.moe_d_ff
+    with _OutputSizes() as seen:
+        y = moe.moe_decode(tp, tx, cfg, RuntimeConfig())
+    assert y.shape == tx.shape and any(f.startswith("aten.bmm") for f, _ in seen.sizes)
+    assert [(f, n) for f, n in seen.sizes if n >= stack] == []
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -13,6 +13,11 @@ the MoE runs its one-hot dispatch there; on the CPU everything runs the
 plain versions.  Prefill under capacity drops (groups of 16) and 8 decode
 steps, and one left-padded wave through ``ServeEngine``, are held to the CPU
 within 3e-4 (tests/test_kernels.py::_tol, fp32).
+
+One MoE decode layer at mixtral-8x22b's full width (8 experts, d_model
+6144, d_ff 16384, bf16, 24 rows) against its plain einsum version: the
+same values within the bf16 tolerance, and the call's memory rise under one
+expert stack (1.61 GB), which the plain version's copies of wi and wg pass.
 """
 
 import dataclasses
@@ -22,9 +27,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.configs import get_smoke_config  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
+
+from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.kernels import launch_counts  # noqa: E402
-from repro_torch.models import RuntimeConfig, build_model  # noqa: E402
+from repro_torch.models import RuntimeConfig, build_model, moe  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -82,3 +89,48 @@ def test_padded_wave_on_the_card_matches_the_cpu(card):
             engine.submit(p, max_new_tokens=8)
         outs.append([r.output for r in engine.run()])
     assert outs[0] == outs[1]
+
+
+def _einsum_decode(p, x, cfg):
+    """The plain version of ``moe_decode``: einsums over the expert axis,
+    whose first two multiply x by a (D, E * F) copy of wi and of wg."""
+    gate, idx, _ = moe._route(p, x, cfg)
+    h = torch.einsum("btd,edf->btef", x, p["wi"])
+    g = torch.einsum("btd,edf->btef", x, p["wg"])
+    ye = torch.einsum("btef,efd->bted", h * F.silu(g), p["wo"])
+    w = sum(F.one_hot(idx[..., k], cfg.n_experts).float() * gate[..., k][..., None]
+            for k in range(cfg.experts_per_token))
+    return torch.einsum("bte,bted->btd", w.to(x.dtype), ye)
+
+
+def _rise(fn):
+    """fn's result and the most device memory allocated during it above
+    what was allocated before."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - before
+
+
+def test_moe_decode_at_mixtral_width_runs_on_the_stacks_as_stored(card):
+    cfg = get_config("mixtral-8x22b")
+    E, D, Fd = cfg.n_experts, cfg.d_model, cfg.moe_d_ff
+    gen = torch.Generator(device="cuda").manual_seed(29)
+
+    def draw(shape, scale, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device="cuda", dtype=dtype) * scale
+
+    p = {"router": draw((D, E), D ** -0.5, torch.float32),
+         "wi": draw((E, D, Fd), D ** -0.5), "wg": draw((E, D, Fd), D ** -0.5),
+         "wo": draw((E, Fd, D), Fd ** -0.5)}
+    x = draw((24, 1, D), 1.0)
+    stack = E * D * Fd * 2
+    plain, plain_rise = _rise(lambda: _einsum_decode(p, x, cfg))
+    y, rise = _rise(lambda: moe.moe_decode(p, x, cfg, RuntimeConfig()))
+    assert y.dtype == torch.bfloat16 and y.shape == x.shape
+    assert plain_rise >= stack > rise, (plain_rise, rise)
+    got, want = y.float(), plain.float()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=5e-2, rtol=5e-2)
+    assert ((got - want).norm() / want.norm()).item() < 1e-2
