@@ -22,8 +22,13 @@ each call the engine makes: it notes the host time of each prefill (the
 engine's ``wave_stats`` time the prefill to its first token on the host),
 keeps each prefill's tokens and last-position logits for the judge, and
 lets the job collect finished requests.  After the window the program is
-freed and the plain reference (``reference/decoder.py``) judges a sample of
-the finished requests.
+freed and the plain reference judges a sample of the finished requests.
+
+What depends on the architecture comes from the configuration's reference
+module (``reference/<name>.py``, named by the file's ``"reference"`` key,
+``decoder`` without it; see :mod:`portbench.reference`): the parameters'
+shapes and dtypes, the keys that must equal the program's, the parts it
+does not compute, and the reference itself.
 """
 
 from __future__ import annotations
@@ -40,7 +45,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .reference.decoder import Reference, param_dtype, param_shapes
+from . import reference
 from .trace import WINDOW
 from .weights import draw
 
@@ -50,16 +55,6 @@ __all__ = ["ROOT", "BENCH", "Cell", "load_cell", "build_program", "Run", "judge"
 BENCH = Path(__file__).resolve().parent
 ROOT = BENCH.parent
 FORBIDDEN_MODULES = ("jax", "jaxlib", "flax", "repro")
-
-# the configuration file's keys, as the program's ModelConfig names them
-_CONFIG_KEYS = {
-    "num_hidden_layers": "n_layers", "hidden_size": "d_model",
-    "num_attention_heads": "n_heads", "num_key_value_heads": "n_kv_heads",
-    "head_dim": "head_dim", "vocab_size": "vocab_size", "rope_theta": "rope_theta",
-    "use_qkv_bias": "qkv_bias", "sliding_window": "sliding_window",
-    "num_local_experts": "n_experts", "num_experts_per_tok": "experts_per_token",
-    "tie_word_embeddings": "tie_embeddings", "norm": "norm",
-}
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -134,20 +129,22 @@ def read_metrics(metrics: List[Dict], rec: Dict) -> Dict:
 def program_config(config: Dict, base: Callable):
     """The program's ModelConfig for ``config``: its arch at the file's
     depth with the file's runtime keys that are ModelConfig fields; refused
-    where any size differs from the file's."""
+    where a key of the reference module's ``CONFIG_KEYS`` differs from the
+    program's field, or where the program has parts the module ``lacks``."""
+    ref = reference.module(config)
     mc = base(config["arch"])
     fields = {f.name for f in dataclasses.fields(mc)}
     mc = dataclasses.replace(mc, n_layers=config["num_hidden_layers"],
                              **{k: v for k, v in config["runtime"].items() if k in fields})
-    ff = mc.moe_d_ff if mc.n_experts else mc.d_ff
-    wrong = {k: (config[k], getattr(mc, f)) for k, f in _CONFIG_KEYS.items()
-             if config[k] != getattr(mc, f)}
-    if config["intermediate_size"] != ff:
-        wrong["intermediate_size"] = (config["intermediate_size"], ff)
-    if mc.act != config["hidden_act"] or mc.final_softcap or mc.attn_softcap \
-            or mc.post_norms or mc.scale_embed or mc.dense_residual \
-            or tuple(mc.pattern) != ("attn",):
-        wrong["architecture"] = "the program's config has parts the reference lacks"
+    wrong = {}
+    for key, field in ref.CONFIG_KEYS.items():
+        value = getattr(mc, field) if isinstance(field, str) else field(mc)
+        if config[key] != value:
+            wrong[key] = (config[key], value)
+    parts = ref.lacks(mc)
+    if parts:
+        wrong["architecture"] = ("the program's config has parts the reference lacks: "
+                                 + ", ".join(parts))
     if wrong:
         raise ValueError(f"{config['arch']}: file and program differ: {wrong}")
     return mc
@@ -175,13 +172,14 @@ def build_program(config: Dict, seed: int, device, base: Optional[Callable] = No
 
 @torch.no_grad()
 def fill_weights(model, config: Dict, seed: int) -> None:
-    shapes = param_shapes(config)
+    ref = reference.module(config)
+    shapes = ref.param_shapes(config)
     named = dict(model.named_parameters())
     if set(named) != set(shapes):
         raise ValueError(f"the program's parameters differ from the benchmark's: "
                          f"{sorted(set(named) ^ set(shapes))[:8]}")
     for name, p in named.items():
-        draw(seed, name, shapes[name], param_dtype(config, name), p.device,
+        draw(seed, name, shapes[name], ref.param_dtype(config, name), p.device,
              config["norm"], out=p.data)
 
 
@@ -405,7 +403,8 @@ def judge(cell: Cell, requests: List[Dict], prefills: List[Tuple], seed: int, de
         served.append(torch.as_tensor(out))
     vocab = cell.config["vocab_size"]
     got = [prefill_logits(prefills, r)[:vocab] for r in picked]
-    fp32 = Reference(cell.config, seed, device, margins=True)
+    ref_module = reference.module(cell.config)
+    fp32 = ref_module.Reference(cell.config, seed, device, margins=True)
     ref = fp32.logits(seqs, positions)
     margins = [m.cpu() for m in fp32.margins]
     tau = cell.spec["routing_margin"]
@@ -419,7 +418,7 @@ def judge(cell: Cell, requests: List[Dict], prefills: List[Tuple], seed: int, de
                    judged_tokens=sum(len(s) for s in served), judged_requests=len(picked))
     if not control:
         return verdict, None
-    low = Reference(cell.config, seed, device, "fp8").logits(seqs, positions)
+    low = ref_module.Reference(cell.config, seed, device, "fp8").logits(seqs, positions)
     low_served = [lg.argmax(-1).cpu() for lg in low]
     return verdict, _readings(gaps(low_served), [lg[0] for lg in low], low_served, ref,
                               margins, tau)

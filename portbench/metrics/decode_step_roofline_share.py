@@ -5,7 +5,6 @@ rows, the K/V of each serving row's valid positions; portbench/counts.py),
 summed over the window's steps, over the engine's decode seconds."""
 
 from portbench import counts
-from portbench.reference.decoder import param_dtype, param_shapes
 
 
 def read(rec):
@@ -13,8 +12,7 @@ def read(rec):
     seconds = sum(w["decode_s"] for w in rec["waves"])
     if not seconds:
         return None
-    weights = counts.weight_bytes(param_shapes(cfg),
-                                  lambda n: param_dtype(cfg, n).itemsize)
+    weights = counts.weight_bytes(cfg)
     bound = 0.0
     for w in rec["waves"]:
         rows = list(zip(w["prompt_lens"], w["output_lens"]))

@@ -17,6 +17,12 @@ control: every matrix product's operands (projections, the attention's
 scores and values, experts, the head) are rounded to float8 e4m3 with one
 scale per tensor (its largest magnitude maps to 448) before the float32
 product; the router stays in float32, as the program keeps it.
+
+Besides the model, the module states what the harness needs of an
+architecture: the parameters' shapes and dtypes, the configuration-file
+keys that must equal the program's (``CONFIG_KEYS``) and the program's
+parts it does not compute (``lacks``).  Its counts of the work are
+``portbench/counts.py``'s own formulas.
 """
 
 from __future__ import annotations
@@ -28,10 +34,40 @@ import torch
 
 from ..weights import draw
 
-__all__ = ["Reference", "param_shapes", "padded_vocab"]
+__all__ = ["Reference", "param_shapes", "param_dtype", "padded_vocab", "CONFIG_KEYS",
+           "lacks"]
 
 FP8_MAX = 448.0
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _ffn_width(mc) -> int:
+    """The MLP's width, or each expert's where there are experts."""
+    return mc.moe_d_ff if mc.n_experts else mc.d_ff
+
+
+# each configuration-file key, and the program's ModelConfig field it must
+# equal (or the function of the ModelConfig that gives the value)
+CONFIG_KEYS = {
+    "num_hidden_layers": "n_layers", "hidden_size": "d_model",
+    "num_attention_heads": "n_heads", "num_key_value_heads": "n_kv_heads",
+    "head_dim": "head_dim", "vocab_size": "vocab_size", "rope_theta": "rope_theta",
+    "use_qkv_bias": "qkv_bias", "sliding_window": "sliding_window",
+    "num_local_experts": "n_experts", "num_experts_per_tok": "experts_per_token",
+    "tie_word_embeddings": "tie_embeddings", "norm": "norm", "hidden_act": "act",
+    "intermediate_size": _ffn_width,
+}
+
+
+def lacks(mc) -> List[str]:
+    """The parts of the program's ModelConfig ``mc`` that this reference
+    does not compute: any activation but SwiGLU's, softcaps, post-norms,
+    a scaled embedding, a dense residual MLP, layers other than attention."""
+    parts = {"act": mc.act != "silu", "final_softcap": bool(mc.final_softcap),
+             "attn_softcap": bool(mc.attn_softcap), "post_norms": bool(mc.post_norms),
+             "scale_embed": bool(mc.scale_embed), "dense_residual": bool(mc.dense_residual),
+             "pattern": tuple(mc.pattern) != ("attn",)}
+    return [name for name, present in parts.items() if present]
 
 
 def padded_vocab(cfg: Dict) -> int:
@@ -94,13 +130,18 @@ class Reference:
                  margins: bool = False):
         if precision not in ("fp32", "fp8"):
             raise ValueError(f"unknown precision {precision!r}")
-        if cfg["partial_rotary_factor"] != 1.0:
-            raise ValueError("the reference rotates whole heads only")
         self.cfg, self.seed, self.device = cfg, seed, torch.device(device)
+        self._check()
         self.fp8 = precision == "fp8"
         # with ``margins``, each judged position's nearest routing tie over
         # the layers (a diagnostic for the readings; see :meth:`_moe`)
         self.margins: Optional[List[torch.Tensor]] = [] if margins else None
+
+    def _check(self) -> None:
+        """Refuses a configuration whose rotation :meth:`_rope` does not
+        compute (a module that rotates part of each head overrides both)."""
+        if self.cfg["partial_rotary_factor"] != 1.0:
+            raise ValueError("the reference rotates whole heads only")
 
     # ------------------------------------------------------------ weights
 

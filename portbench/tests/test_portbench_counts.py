@@ -39,9 +39,11 @@ def test_flash_call():
 
 
 def test_decode_step():
-    weights = counts.weight_bytes({"embed": (10, 8), "lm_head": (8, 10), "w": (8, 8)},
-                                  lambda n: 4)
-    assert weights == (80 + 64) * 4
+    # every weight but the embedding, fp32: the head 8 x 256 (the vocabulary
+    # padded to 256), the final norm's 8, and per layer two norms' 8, q, k,
+    # v and o 64 + 32 + 32 + 64, the MLP's 3 x 128
+    weights = counts.weight_bytes(TINY)
+    assert weights == (2048 + 8 + 2 * (16 + 192 + 384)) * 4
     c = counts.decode_step(TINY, [5, 2], weights)
     assert c["flops"] == sum(2 * (2 * 576 + 4 * 4 * 2 * n) + 160 for n in (5, 2))
     # the weights, two looked-up rows of fp32 embedding, K/V of 7 positions

@@ -49,8 +49,7 @@ def test_prefill_mfu():
 
 
 def test_decode_step_roofline_share():
-    from portbench.reference.decoder import param_shapes
-    weights = counts.weight_bytes(param_shapes(TINY), lambda n: 4)
+    weights = counts.weight_bytes(TINY)
     # wave 1: step 0 serves row 0 (output 3) at context 4 + 1; step 1 row 0
     # at 6; wave 2: step 0 serves row 1 (output 2) at 4 + 1
     bound = sum(counts.decode_step(TINY, [c], weights)["seconds"] for c in (5, 6, 5))
