@@ -78,6 +78,13 @@ class ModelConfig:
     tie_embeddings: bool = False
     source: str = ""                        # provenance tag from the assignment
 
+    # --- port-only (the reference's ModelConfig has neither) ----------------------
+    # RoPE on the first int(rotary_fraction * head_dim) dims of each head, the
+    # rest passed through (stablelm-2: 0.25); every norm's eps (stablelm-2: 1e-5).
+    # The defaults are the reference's whole-head rotation and fixed 1e-6.
+    rotary_fraction: float = 1.0
+    norm_eps: float = 1e-6
+
     # ------------------------------------------------------------------ derived
 
     @property

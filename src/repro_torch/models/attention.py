@@ -97,8 +97,8 @@ def attn_apply(
     if use_rope and kv_x is None:
         if positions is None:
             positions = torch.arange(S, device=x.device)
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        q = apply_rope(q, positions, cfg.rope_theta, cfg.rotary_fraction)
+        k = apply_rope(k, positions, cfg.rope_theta, cfg.rotary_fraction)
     if kv_x is not None:
         segments = None
     out = flash_attention(
@@ -179,8 +179,8 @@ def attn_decode(
     k_t = _project(params["wk"], x_t, Hkv, dh)
     v_t = _project(params["wv"], x_t, Hkv, dh)
     pos_arr = torch.full((B, 1), pos, dtype=torch.int32, device=x_t.device)
-    q = apply_rope(q, pos_arr, cfg.rope_theta)
-    k_t = apply_rope(k_t, pos_arr, cfg.rope_theta)
+    q = apply_rope(q, pos_arr, cfg.rope_theta, cfg.rotary_fraction)
+    k_t = apply_rope(k_t, pos_arr, cfg.rope_theta, cfg.rotary_fraction)
     L = cache["k"].shape[1]
     ring = window is not None
     if not ring and pos >= L:

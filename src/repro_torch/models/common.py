@@ -357,26 +357,26 @@ def keep_layout(x: torch.Tensor, t: torch.Tensor, stat: bool = False) -> torch.T
                    for pl in x.placements])
 
 
-def rmsnorm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     xf = x.float()
     var = keep_layout(x, torch.mean(xf * xf, dim=-1, keepdim=True), stat=True)
-    y = xf * torch.rsqrt(var + 1e-6)
+    y = xf * torch.rsqrt(var + eps)
     return keep_layout(x, (y * (1.0 + scale.float())).to(x.dtype))
 
 
-def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor
-              ) -> torch.Tensor:
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-6) -> torch.Tensor:
     xf = x.float()
     mean = keep_layout(x, torch.mean(xf, dim=-1, keepdim=True), stat=True)
     var = keep_layout(x, torch.var(xf, dim=-1, keepdim=True, correction=0), stat=True)
-    y = (xf - mean) * torch.rsqrt(var + 1e-6)
+    y = (xf - mean) * torch.rsqrt(var + eps)
     return keep_layout(x, (y * scale.float() + bias.float()).to(x.dtype))
 
 
-def norm_apply(params, x: torch.Tensor, kind: str) -> torch.Tensor:
+def norm_apply(params, x: torch.Tensor, kind: str, eps: float = 1e-6) -> torch.Tensor:
     if kind == "rmsnorm":
-        return rmsnorm(x, params["scale"])
-    return layernorm(x, params["scale"], params["bias"])
+        return rmsnorm(x, params["scale"], eps)
+    return layernorm(x, params["scale"], params["bias"], eps)
 
 
 def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
@@ -433,10 +433,20 @@ def _rope_angles(positions: torch.Tensor, dim: int, theta: float):
     return torch.sin(ang), torch.cos(ang)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
-               ) -> torch.Tensor:
-    """x: (B, S, H, D); positions: (B, S) or (S,).  Half-split, in fp32."""
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               fraction: float = 1.0) -> torch.Tensor:
+    """x: (B, S, H, D); positions: (B, S) or (S,).  Half-split, in fp32.
+
+    With ``fraction`` < 1 only the first r = int(fraction * D) dims rotate
+    (half-split within r, at frequencies theta^(-2i/r)); dims r..D pass
+    through in x's dtype."""
     D = x.shape[-1]
+    r = int(fraction * D)
+    if r < D:
+        if r <= 0 or r % 2:
+            raise ValueError(f"rotary fraction {fraction} of head_dim {D} rotates "
+                             f"{r} dims: it must rotate a positive, even number")
+        return torch.cat([apply_rope(x[..., :r], positions, theta), x[..., r:]], dim=-1)
     sin, cos = _rope_angles(positions, D, theta)      # (B, S, D/2)
     if sin.dim() == 2:                                 # (S, D/2) -> batch dim
         sin, cos = sin[None], cos[None]

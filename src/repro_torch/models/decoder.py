@@ -188,7 +188,7 @@ class DecoderLM(nn.Module):
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        x = norm_apply(on_use(self.final_norm), x, cfg.norm)
+        x = self._norm(on_use(self.final_norm), x)
         head = (on_use(self.embed, x).T if cfg.tie_embeddings
                 else on_use(self.lm_head, x))
         logits = softcap(linear(x, head).float(), cfg.final_softcap)
@@ -197,6 +197,11 @@ class DecoderLM(nn.Module):
             logits = torch.where(iota < cfg.vocab_size, logits, -1e30)
         return self.rt.logits_constraint(logits)
 
+    def _norm(self, p, x: torch.Tensor) -> torch.Tensor:
+        """A norm of ``x`` by params ``p``, in a timed span of its own."""
+        with span("model.norm", timed=True):
+            return norm_apply(p, x, self.cfg.norm, self.cfg.norm_eps)
+
     def _mlp_sublayer(self, p, x: torch.Tensor, mix: torch.Tensor,
                       decode: bool = False) -> torch.Tensor:
         """x + mix, then the MLP sublayer (the MoE, plus arctic's dense
@@ -204,9 +209,9 @@ class DecoderLM(nn.Module):
         post-norms wrap both sublayers' outputs."""
         cfg, rt = self.cfg, self.rt
         if cfg.post_norms:
-            mix = norm_apply(p["post_norm1"], rt.hidden(mix), cfg.norm)
+            mix = self._norm(p["post_norm1"], rt.hidden(mix))
         x = rt.residual(x, mix)
-        h = rt.hidden(norm_apply(p["norm2"], x, cfg.norm))
+        h = rt.hidden(self._norm(p["norm2"], x))
         with span("model.moe" if cfg.n_experts else "model.mlp", timed=True):
             if cfg.n_experts:
                 if decode:
@@ -220,13 +225,13 @@ class DecoderLM(nn.Module):
             else:
                 y = mlp_apply(p["mlp"], h, cfg.act)
         if cfg.post_norms:
-            y = norm_apply(p["post_norm2"], rt.hidden(y), cfg.norm)
+            y = self._norm(p["post_norm2"], rt.hidden(y))
         return rt.residual(x, y)
 
     def _apply_block(self, kind: str, p, x, *, positions, segments):
         cfg, rt = self.cfg, self.rt
         p = on_use(p, x)
-        h = rt.hidden(norm_apply(p["norm1"], x, cfg.norm))
+        h = rt.hidden(self._norm(p["norm1"], x))
         if kind == "ssm":
             return rt.residual(x, ssm_apply(p["ssm"], h, cfg, rt))
         if kind == "rec":
@@ -312,7 +317,7 @@ class DecoderLM(nn.Module):
     def _prefill_block(self, kind: str, p, x, cache, positions, segments=None):
         cfg, rt = self.cfg, self.rt
         p = on_use(p, x)
-        h = rt.hidden(norm_apply(p["norm1"], x, cfg.norm))
+        h = rt.hidden(self._norm(p["norm1"], x))
         if kind == "ssm":
             y, state = ssm_apply(p["ssm"], h, cfg, rt, return_state=True)
             state["conv"] = state["conv"].to(cache["conv"].dtype)
@@ -350,7 +355,7 @@ class DecoderLM(nn.Module):
     def _decode_block(self, kind: str, p, x_t, cache, pos, context_start=None):
         cfg, rt = self.cfg, self.rt
         p = on_use(p, x_t)
-        h = rt.hidden(norm_apply(p["norm1"], x_t, cfg.norm))
+        h = rt.hidden(self._norm(p["norm1"], x_t))
         if kind == "ssm":
             y, state = ssm_decode(p["ssm"], h, cache, cfg, rt)
             return rt.residual(x_t, y), state

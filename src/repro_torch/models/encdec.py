@@ -93,7 +93,7 @@ class EncDecLM(nn.Module):
     def _norm(self, p, x: torch.Tensor) -> torch.Tensor:
         """A sublayer's input: the norm of the residual stream, in the
         residual stream's layout (sharded runs)."""
-        return self.rt.hidden(norm_apply(p, x, self.cfg.norm))
+        return self.rt.hidden(norm_apply(p, x, self.cfg.norm, self.cfg.norm_eps))
 
     def _enc_block(self, p, x: torch.Tensor) -> torch.Tensor:
         cfg, rt = self.cfg, self.rt
@@ -106,7 +106,8 @@ class EncDecLM(nn.Module):
         """frames: (B, S_enc, D) precomputed frontend embeddings."""
         x = self._layers(self._enc_block, self.encoder,
                          frames.to(self.rt.compute_dtype))
-        return norm_apply(on_use(self.enc_final_norm), x, self.cfg.norm)
+        cfg = self.cfg
+        return norm_apply(on_use(self.enc_final_norm), x, cfg.norm, cfg.norm_eps)
 
     # ------------------------------------------------------------------ train
 
@@ -127,7 +128,7 @@ class EncDecLM(nn.Module):
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        x = norm_apply(on_use(self.final_norm), x, cfg.norm)
+        x = norm_apply(on_use(self.final_norm), x, cfg.norm, cfg.norm_eps)
         logits = softcap(linear(x, on_use(self.lm_head, x)).float(), cfg.final_softcap)
         if cfg.padded_vocab != cfg.vocab_size:
             iota = torch.arange(cfg.padded_vocab, device=logits.device)

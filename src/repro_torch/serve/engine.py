@@ -29,8 +29,8 @@ those steps gave to requests still running, with the part of the decode
 time spent waiting for each step's tokens (``decode_wait_s``).  Only a wave
 served under ``torch.profiler.profile`` also gets the device seconds of the
 model's timed spans (:mod:`repro_torch.spans`), ``prefill_device_s`` and
-``decode_device_s`` (``model.step``, ``model.attn`` and ``model.moe`` or
-``model.mlp``), and the MoE capacity counters of its prefill,
+``decode_device_s`` (``model.step``, ``model.norm``, ``model.attn`` and
+``model.moe`` or ``model.mlp``), and the MoE capacity counters of its prefill,
 ``moe_slots`` (expert slots computed) and ``moe_kept`` (routed token-expert
 pairs the dispatch kept).  Its host spans are ``engine.wave``,
 ``engine.prefill`` and, per step, ``engine.decode_step`` holding

@@ -140,8 +140,13 @@ def test_full_config_matches_reference_config():
     from repro.configs import get_config as jax_get_config
     from repro_torch.configs import ARCHS
     assert ARCHS == JAX_ARCHS
+    # the port-only fields (the rotary fraction and the norm eps) sit at the
+    # defaults that compute the reference's whole-head RoPE and eps 1e-6
+    port_only = {"rotary_fraction": 1.0, "norm_eps": 1e-6}
     for arch in ARCHS:
-        assert get_config(arch).__dict__ == jax_get_config(arch).__dict__, arch
+        own = dict(get_config(arch).__dict__)
+        assert {k: own.pop(k) for k in port_only} == port_only, arch
+        assert own == jax_get_config(arch).__dict__, arch
 
 
 # ---------------------------------------------------------------------------

@@ -51,6 +51,16 @@ def mixtral():
     return _model()
 
 
+@pytest.fixture(scope="module")
+def stablelm():
+    """The published StableLM 2 block at the smoke sizes: q/k/v bias, RoPE on
+    a quarter of each head, LayerNorm at eps 1e-5, a dense MLP."""
+    cfg = dataclasses.replace(get_smoke_config("stablelm-1.6b"), qkv_bias=True,
+                              rotary_fraction=0.25, norm_eps=1e-5)
+    rt = RuntimeConfig(compute_dtype=torch.float32, max_cache_len=64)
+    return build_model(cfg, rt, device="cpu", seed=1)
+
+
 class _Logits:
     """The model as the engine sees it, keeping every step's last logits."""
 
@@ -129,6 +139,10 @@ def test_ranges_nest_by_time(mixtral):
     assert _inside(r["engine.prefill"], r["engine.wave"])
     prefill_step = [s for s in r["model.step"] if _inside([s], r["engine.prefill"])]
     assert len(prefill_step) == 1
+    norms = 2 * layers + 1                                 # two a layer, the final norm
+    in_prefill = [s for s in r["model.norm"] if _inside([s], r["engine.prefill"])]
+    assert len(in_prefill) == norms and _inside(in_prefill, prefill_step)
+    assert len(r["model.norm"]) == norms * (1 + stats["decode_steps"])
     for name in ("model.attn", "model.moe"):
         in_prefill = [s for s in r[name] if _inside([s], r["engine.prefill"])]
         assert len(in_prefill) == layers and _inside(in_prefill, prefill_step)
@@ -145,13 +159,43 @@ def test_ranges_nest_by_time(mixtral):
     assert len(decode_step) == steps
     for key in ("prefill_device_s", "decode_device_s"):
         secs = stats[key]
-        assert set(secs) == {"model.step", "model.attn", "model.moe"}
-        assert 0 < secs["model.attn"] + secs["model.moe"] <= secs["model.step"]
+        assert set(secs) == {"model.step", "model.norm", "model.attn", "model.moe"}
+        assert 0 < secs["model.norm"] + secs["model.attn"] + secs["model.moe"] <= secs[
+            "model.step"]
 
 
 def test_profiler_on_serves_the_same_bits(mixtral):
     _, done_off, logits_off, _ = _serve(mixtral, traced=False)
     _, done_on, logits_on, _ = _serve(mixtral, traced=True)
+    assert [r.output for r in done_on] == [r.output for r in done_off]
+    assert len(logits_on) == len(logits_off) == NEW
+    for on, off in zip(logits_on, logits_off):
+        assert torch.equal(on, off)
+
+
+def test_dense_spans_time_attention_and_mlp(stablelm):
+    """A dense model's wave times ``model.norm``, ``model.attn`` and
+    ``model.mlp`` (no MoE span or counter) in its prefill and its decode,
+    each inside the step."""
+    engine, _, _, prof = _serve(stablelm, traced=True)
+    [stats] = engine.wave_stats
+    assert set(stats) == HOST_KEYS | {"prefill_device_s", "decode_device_s"}
+    for key in ("prefill_device_s", "decode_device_s"):
+        secs = stats[key]
+        assert set(secs) == {"model.step", "model.norm", "model.attn", "model.mlp"}
+        assert 0 < secs["model.norm"] + secs["model.attn"] + secs["model.mlp"] <= secs[
+            "model.step"]
+    r = _ranges(prof)
+    layers = stablelm.cfg.n_layers
+    for name, n in (("model.norm", 2 * layers + 1), ("model.attn", layers),
+                    ("model.mlp", layers)):
+        assert len(r[name]) == n * (1 + stats["decode_steps"])
+        assert _inside(r[name], r["model.step"])
+
+
+def test_dense_profiler_on_serves_the_same_bits(stablelm):
+    _, done_off, logits_off, _ = _serve(stablelm, traced=False)
+    _, done_on, logits_on, _ = _serve(stablelm, traced=True)
     assert [r.output for r in done_on] == [r.output for r in done_off]
     assert len(logits_on) == len(logits_off) == NEW
     for on, off in zip(logits_on, logits_off):
@@ -214,7 +258,8 @@ def test_decode_reads_each_steps_marks_during_the_next(mixtral, monkeypatch):
     monkeypatch.setattr(spans.Recorder, "totals", counting_totals)
     engine, _, _, _ = _serve(mixtral, traced=True)
     [stats] = engine.wave_stats
-    assert left == [2 * mixtral.cfg.n_layers + 1]           # attn, moe a layer; step
+    # two norms, attn and moe a layer; the final norm and the step
+    assert left == [4 * mixtral.cfg.n_layers + 2]
     assert 0 < stats["decode_device_s"]["model.moe"] < stats["decode_device_s"]["model.step"]
 
 

@@ -61,8 +61,9 @@ def test_timed_spans_read_cuda_events(card):
     [stats] = engine.wave_stats
     for phase, host_s in (("prefill", stats["prefill_s"]), ("decode", stats["decode_s"])):
         secs = stats[f"{phase}_device_s"]
-        assert set(secs) == {"model.step", "model.attn", "model.moe"}, phase
-        assert 0 < secs["model.attn"] + secs["model.moe"] <= secs["model.step"] <= host_s
+        assert set(secs) == {"model.step", "model.norm", "model.attn", "model.moe"}, phase
+        assert 0 < secs["model.norm"] + secs["model.attn"] + secs["model.moe"] <= secs[
+            "model.step"] <= host_s
     assert 0 < stats["moe_kept"] < stats["moe_slots"]
 
 
@@ -83,7 +84,7 @@ def test_profile_table_sums_kernels_alone(card):
         window_us = (time.perf_counter() - t0) * 1e6
     device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     spans = {e.name for e in device if e.is_user_annotation}
-    assert {"model.step", "model.attn", "model.moe"} <= spans      # drawn on the device
+    assert {"model.step", "model.norm", "model.attn", "model.moe"} <= spans   # on the device
     kernels = [e for e in device if not e.is_user_annotation]
     busy_ms, idle, launches, top = chip_smoke.profile_table(torch, prof, window_us, top=50)
     assert launches == len(kernels)
